@@ -1,0 +1,49 @@
+"""Flexagon on PyTorch and CUDA: the port of the ``repro`` JAX package.
+
+Multi-dataflow SpMSpM for DNN serving on an NVIDIA H100.  The package
+mirrors ``repro``'s layout; this slice covers the plan-once/execute-many
+operator and its model-side consumer:
+
+- :func:`flexagon_plan` / :class:`FlexagonPlan` — plan once, execute many;
+- :class:`SparseOperand` / :class:`SparseFormat` — unified format surface;
+- :class:`PlanCache` — LRU-bounded fingerprint-keyed plan reuse;
+- ``repro_torch.backends`` — ``reference`` (torch executors) and ``cuda``
+  (the hand-written kernels in ``repro_torch.kernels``), plus selection
+  policies;
+- ``repro_torch.models`` — :func:`compress_ffn` / :func:`sparse_ffn_apply`;
+- ``repro_torch.convert`` — values carried over from the JAX package.
+
+Entry points run on the card (``device=None`` → ``cuda``) unless the
+caller passes ``device="cpu"``.  The package imports torch and numpy and
+nothing of JAX.
+"""
+from .api import (  # noqa: F401
+    PHASE1_COUNTERS,
+    FlexagonPlan,
+    PlanCache,
+    SparseFormat,
+    SparseOperand,
+    flexagon_plan,
+)
+from .backends import (  # noqa: F401
+    available_backends,
+    get_backend,
+    get_policy,
+    register_backend,
+)
+from .models import compress_ffn, sparse_ffn_apply  # noqa: F401
+
+__all__ = [
+    "PHASE1_COUNTERS",
+    "FlexagonPlan",
+    "PlanCache",
+    "SparseFormat",
+    "SparseOperand",
+    "flexagon_plan",
+    "available_backends",
+    "get_backend",
+    "get_policy",
+    "register_backend",
+    "compress_ffn",
+    "sparse_ffn_apply",
+]

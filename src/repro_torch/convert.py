@@ -1,0 +1,54 @@
+"""Carry values from the JAX package's structures into the port's.
+
+The port never imports the JAX package; these functions read any objects
+with the JAX structures' fields and turn each array into numpy first, so
+JAX arrays, numpy arrays and tensors all work.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .api import SparseOperand
+from .config import resolve_device
+from .core.formats import SparseFormat
+
+__all__ = ["ffn_params_from_jax", "sparse_operand_from_jax"]
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def ffn_params_from_jax(tree: Dict[str, Any], *, device=None
+                        ) -> Dict[str, Any]:
+    """JAX FFN params -> the port's, as tensors on ``device``.
+
+    ``tree`` is ``{"w_gate": {"w"}, "w_up": {"w"}, "w_down": {"w"}}`` plus
+    an optional ``"block_mask"``, as the JAX package's ``ffn_init`` makes
+    it; ``device=None`` resolves to the card.
+    """
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {name: {"w": _tensor(tree[name]["w"], dev)}
+                           for name in ("w_gate", "w_up", "w_down")}
+    if "block_mask" in tree:
+        out["block_mask"] = _tensor(tree["block_mask"], dev)
+    return out
+
+
+def sparse_operand_from_jax(op, *, device=None) -> SparseOperand:
+    """A JAX ``SparseOperand`` -> the port's.
+
+    Block data lands on ``device`` (``None``: the card); the coordinate
+    arrays stay on the host, as the port keeps them.  Scalar formats stay
+    numpy throughout.
+    """
+    fmt = SparseFormat.of(getattr(op.fmt, "value", op.fmt))
+    data = np.array(op.data)
+    if fmt.is_block:
+        data = torch.as_tensor(data, device=resolve_device(device))
+    return SparseOperand(
+        data, np.array(op.indptr), np.array(op.indices), tuple(op.shape),
+        tuple(op.block_shape) if op.block_shape is not None else None, fmt)

@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels for the Flexagon hot spots, with their plain
+PyTorch versions.
+
+- ``stream.py`` — the shared :class:`StreamSchedule` work list and its two
+  kernels, ``stream_spmm`` (K1, block runs: IP and OP) and
+  ``stream_panel_spmm`` (K2, row panels: Gustavson), built from
+  ``csrc/stream_spmm.cu`` by ``build.py`` at first use;
+- ``ip_spmm`` / ``op_spmm`` / ``gust_spmm`` — the three dataflows as thin
+  wrappers over those two kernels;
+- ``ref.py`` — the dense oracle.
+
+Plan-level dispatch lives in :mod:`repro_torch.backends.cuda`.
+"""
+from .ip_spmm import ip_spmm          # noqa: F401
+from .op_spmm import op_spmm          # noqa: F401
+from .gust_spmm import gust_spmm      # noqa: F401
+from .stream import (  # noqa: F401
+    SCHEDULE_KINDS,
+    DeviceSchedule,
+    StreamSchedule,
+    device_schedule,
+    pad_schedule,
+    schedule_from_ip,
+    schedule_from_stream,
+    stream_panel_spmm,
+    stream_panel_spmm_plain,
+    stream_spmm,
+    stream_spmm_plain,
+)
+from .ref import spmm_ref             # noqa: F401

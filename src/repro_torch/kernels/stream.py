@@ -1,0 +1,508 @@
+"""Unified streaming work-list substrate for the Flexagon CUDA kernels.
+
+All three dataflows enumerate the *same* effectual set
+``{(i, k, j) : A[i,k] != 0 and B[k,j] != 0}`` — they differ only in the
+order the pairs are visited and in the merge discipline applied to the
+resulting psum blocks (paper §3.2).  This module factors that observation
+into one phase-1 artifact, :class:`StreamSchedule`: a flat work list of
+(A slot, B slot) block pairs annotated with run boundaries, consumed by
+exactly two kernels:
+
+- :func:`stream_spmm` — the *block-run* kernel (K1).  Work entries arrive
+  destination-major (IP keeps its intersection order; OP is lexsorted by
+  destination at plan time), so the merge degenerates to "accumulate while
+  the run is unchanged, write when it ends".
+- :func:`stream_panel_spmm` — the *row-panel* kernel (K2, Gustavson).
+  Work entries arrive row-major; each psum merges into the run's output
+  row panel at its follower's column.
+
+The host half (:class:`StreamSchedule`, :func:`schedule_from_ip`,
+:func:`schedule_from_stream`, :func:`pad_schedule`) is numpy and builds
+arrays byte-equal to ``repro.kernels.stream``.  :func:`device_schedule`
+uploads what the kernels read — the work list plus one segment table of
+run starts and destinations derived from ``is_first`` — to a device once
+per plan.
+
+Each wrapper dispatches on the device of its operands alone: a tensor on
+the CPU runs the plain PyTorch version in this module
+(:func:`stream_spmm_plain`, :func:`stream_panel_spmm_plain`); a tensor
+anywhere else launches the CUDA kernel (``csrc/stream_spmm.cu``) or
+raises.  ``stream_spmm.launches`` / ``stream_panel_spmm.launches`` count
+kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..core.dataflows import IPPlan, StreamPlan
+from . import build
+
+__all__ = [
+    "SCHEDULE_KINDS",
+    "StreamSchedule",
+    "DeviceSchedule",
+    "schedule_from_ip",
+    "schedule_from_stream",
+    "pad_schedule",
+    "device_schedule",
+    "stream_spmm",
+    "stream_spmm_plain",
+    "stream_panel_spmm",
+    "stream_panel_spmm_plain",
+]
+
+#: the two kernel disciplines a schedule can target: ``"dest"`` is the
+#: destination-major block-run kernel (:func:`stream_spmm`, IP/OP),
+#: ``"panel"`` the row-panel kernel (:func:`stream_panel_spmm`, Gustavson).
+SCHEDULE_KINDS = ("dest", "panel")
+
+
+@dataclasses.dataclass
+class StreamSchedule:
+    """Phase-1 work list + run boundaries for the streaming kernels.
+
+    Pattern-only, numpy.  Runs are contiguous in the work list: entry ``w``
+    starts a run when ``is_first[w]`` and ends one when ``is_last[w]``.
+    """
+
+    a_slot: np.ndarray     # (W,) int32 — A block slot per work entry
+    b_slot: np.ndarray     # (W,) int32 — B block slot per work entry
+    cj: np.ndarray         # (W,) int32 — destination block column (panel merge)
+    is_first: np.ndarray   # (W,) int32 — run boundary flags
+    is_last: np.ndarray
+    run_id: np.ndarray     # (W,) int32 — output fiber index per entry
+    run_ci: np.ndarray     # (R,) int32 — destination block coords per run
+    run_cj: np.ndarray     # (R,) int32
+    n_runs: int            # == R
+    # -- self-description: which entries and runs are real, and the row
+    # that padding targets (-1: the schedule carries no padding)
+    kind: str = "dest"            # which kernel consumes it (SCHEDULE_KINDS)
+    real_w: np.ndarray = None     # (1,) int32 — work entries that are real
+    real_r: np.ndarray = None     # (1,) int32 — runs with real destinations
+    oob: np.ndarray = None        # (1,) int32 — designated dropped pad row
+
+    def __post_init__(self):
+        if self.kind not in SCHEDULE_KINDS:
+            raise ValueError(f"unknown schedule kind {self.kind!r}")
+        if self.real_w is None:
+            self.real_w = np.array([np.asarray(self.a_slot).size], np.int32)
+        if self.real_r is None:
+            self.real_r = np.array([self.n_runs], np.int32)
+        if self.oob is None:
+            self.oob = np.array([-1], np.int32)
+
+    @property
+    def n_work(self) -> int:
+        return int(np.asarray(self.a_slot).size)
+
+    @property
+    def n_real_work(self) -> int:
+        return int(np.asarray(self.real_w).reshape(-1)[0])
+
+    @property
+    def n_real_runs(self) -> int:
+        return int(np.asarray(self.real_r).reshape(-1)[0])
+
+    @property
+    def oob_row(self) -> int:
+        return int(np.asarray(self.oob).reshape(-1)[0])
+
+    def describe(self) -> dict:
+        """The self-description contract as one plain dict."""
+        return {
+            "kind": self.kind,
+            "n_work": self.n_work,
+            "n_runs": int(self.n_runs),
+            "real_w": self.n_real_work,
+            "real_r": self.n_real_runs,
+            "oob_row": self.oob_row,
+        }
+
+
+def _empty_schedule(kind: str = "dest") -> StreamSchedule:
+    z = np.zeros(0, np.int32)
+    return StreamSchedule(z, z, z, z, z, z, z, z, 0, kind)
+
+
+def _runs_from_boundaries(newrun: np.ndarray, w: int):
+    is_first = np.ones(w, np.int32)
+    is_first[1:] = newrun.astype(np.int32)
+    is_last = np.ones(w, np.int32)
+    is_last[:-1] = newrun.astype(np.int32)
+    run_id = (np.cumsum(is_first) - 1).astype(np.int32)
+    return is_first, is_last, run_id
+
+
+def schedule_from_ip(plan: IPPlan) -> StreamSchedule:
+    """IP: intersection lists are already destination-major (i, j, p)."""
+    pair_a = np.asarray(plan.pair_a)
+    pair_b = np.asarray(plan.pair_b)
+    npairs = np.asarray(plan.npairs)
+    mb, nb, p_max = pair_a.shape
+    mask = np.arange(p_max)[None, None, :] < npairs[..., None]
+    w = int(mask.sum())
+    if w == 0:
+        return _empty_schedule()
+    a_slot = pair_a[mask].astype(np.int32)
+    b_slot = pair_b[mask].astype(np.int32)
+    ri, rj = np.nonzero(npairs)
+    counts = npairs[ri, rj]
+    cj = np.repeat(rj, counts).astype(np.int32)
+    is_first = np.zeros(w, np.int32)
+    is_first[np.cumsum(counts) - counts] = 1
+    is_last = np.zeros(w, np.int32)
+    is_last[np.cumsum(counts) - 1] = 1
+    run_id = np.repeat(np.arange(ri.size), counts).astype(np.int32)
+    return StreamSchedule(a_slot, b_slot, cj, is_first, is_last, run_id,
+                          ri.astype(np.int32), rj.astype(np.int32),
+                          int(ri.size), "dest")
+
+
+def schedule_from_stream(plan: StreamPlan, *, by_dest: bool) -> StreamSchedule:
+    """OP/Gust: order a :class:`StreamPlan` work list into runs.
+
+    ``by_dest=True`` (OP) lexsorts the k-major psum stream by destination
+    block — the PSRAM set/tag lookup as a host sort — so one kernel merges
+    with no psum round trip through device memory.  ``by_dest=False``
+    (Gust) keeps the i-major leader/follower order and forms one run per
+    output row panel.
+    """
+    ci = np.asarray(plan.ci)
+    cj = np.asarray(plan.cj)
+    a_slot = np.asarray(plan.a_slot).astype(np.int32)
+    b_slot = np.asarray(plan.b_slot).astype(np.int32)
+    kind = "dest" if by_dest else "panel"
+    w = int(ci.size)
+    if w == 0:
+        return _empty_schedule(kind)
+    # seg_ptr[-1] counts the plan's real entries; padded entries (which
+    # only tiled plans make) carry an out-of-bounds ci and sort last
+    real = int(np.asarray(plan.seg_ptr)[-1])
+    if by_dest:
+        order = np.lexsort((cj, ci))
+        ci, cj = ci[order], cj[order]
+        a_slot, b_slot = a_slot[order], b_slot[order]
+        newrun = (ci[1:] != ci[:-1]) | (cj[1:] != cj[:-1])
+    else:
+        newrun = ci[1:] != ci[:-1]
+    is_first, is_last, run_id = _runs_from_boundaries(newrun, w)
+    run_ci = ci[is_first == 1].astype(np.int32)
+    run_cj = (cj[is_first == 1] if by_dest
+              else np.zeros(run_ci.size)).astype(np.int32)
+    real_r = int(run_id[real - 1]) + 1 if real > 0 else 0
+    oob = int(ci[real]) if real < w else -1
+    return StreamSchedule(a_slot, b_slot, cj.astype(np.int32),
+                          is_first, is_last, run_id,
+                          run_ci, run_cj, int(run_ci.size), kind,
+                          np.array([real], np.int32),
+                          np.array([real_r], np.int32),
+                          np.array([oob], np.int32))
+
+
+def pad_schedule(s: StreamSchedule, w_total: int, r_total: int,
+                 oob_row: int) -> StreamSchedule:
+    """Pad a schedule to shared (work, run) extents.
+
+    Pad work entries are each a self-contained single-entry run (reset,
+    one add of real-but-irrelevant blocks, flush) targeting the reserved
+    run slot ``r_total - 1``; every pad run slot's destination row is
+    ``oob_row`` (one past the output grid), so the kernels skip it.
+    """
+    w = int(np.asarray(s.a_slot).size)
+    wpad = w_total - w
+    rpad = r_total - s.n_runs
+    if wpad < 0 or rpad < 0 or (wpad > 0 and rpad == 0):
+        raise ValueError(
+            f"cannot pad schedule (W={w}, R={s.n_runs}) to "
+            f"(W={w_total}, R={r_total})")
+    if wpad == 0 and rpad == 0:
+        return s
+    if s.oob_row >= 0 and s.oob_row != oob_row:
+        raise ValueError(
+            f"conflicting pad destinations: schedule already pads to row "
+            f"{s.oob_row}, pad_schedule asked for {oob_row}")
+    zero = np.zeros(wpad, np.int32)
+    one = np.ones(wpad, np.int32)
+    return StreamSchedule(
+        np.concatenate([np.asarray(s.a_slot, np.int32), zero]),
+        np.concatenate([np.asarray(s.b_slot, np.int32), zero]),
+        np.concatenate([np.asarray(s.cj, np.int32), zero]),
+        np.concatenate([np.asarray(s.is_first, np.int32), one]),
+        np.concatenate([np.asarray(s.is_last, np.int32), one]),
+        np.concatenate([np.asarray(s.run_id, np.int32),
+                        np.full(wpad, r_total - 1, np.int32)]),
+        np.concatenate([np.asarray(s.run_ci, np.int32),
+                        np.full(rpad, oob_row, np.int32)]),
+        np.concatenate([np.asarray(s.run_cj, np.int32),
+                        np.zeros(rpad, np.int32)]),
+        r_total,
+        s.kind,
+        np.asarray(s.real_w, np.int32),
+        np.asarray(s.real_r, np.int32),
+        np.array([oob_row], np.int32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Device half
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DeviceSchedule:
+    """What the kernels read, on one device.  Built once per plan.
+
+    A *segment* is one run as the work list lays it out: the entries from
+    one ``is_first`` to the next.  Real runs are one segment each; every
+    pad entry of :func:`pad_schedule` is a segment of its own whose
+    destination row is out of bounds.
+    """
+
+    a_slot: torch.Tensor      # (W,) int32
+    b_slot: torch.Tensor      # (W,) int32
+    cj: torch.Tensor          # (W,) int32
+    seg_start: torch.Tensor   # (S+1,) int32 — segment offsets, last == W
+    seg_ci: torch.Tensor      # (S,) int32 — destination block row
+    seg_cj: torch.Tensor      # (S,) int32 — destination block column
+    kind: str
+    # host-side bounds, checked against the operands before every launch
+    max_a_slot: int
+    max_b_slot: int
+    max_cj: int
+
+    @property
+    def n_work(self) -> int:
+        return int(self.a_slot.shape[0])
+
+    @property
+    def n_seg(self) -> int:
+        return int(self.seg_ci.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.a_slot.device
+
+
+def device_schedule(s: StreamSchedule, device) -> DeviceSchedule:
+    """Derive the segment table from ``is_first`` and upload it once."""
+    is_first = np.asarray(s.is_first)
+    w = int(is_first.size)
+    if w and is_first[0] != 1:
+        raise ValueError("malformed schedule: entry 0 does not start a run")
+    starts = np.flatnonzero(is_first)
+    rid = np.asarray(s.run_id)[starts]
+    seg_ci = np.asarray(s.run_ci, np.int32)[rid]
+    seg_cj = np.asarray(s.run_cj, np.int32)[rid]
+    cj = np.asarray(s.cj, np.int32)
+
+    def up(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                               device=device)
+
+    def top(x):
+        return int(x.max()) if x.size else -1
+
+    a_slot = np.asarray(s.a_slot, np.int32)
+    b_slot = np.asarray(s.b_slot, np.int32)
+    if w and min(int(a_slot.min()), int(b_slot.min())) < 0:
+        raise ValueError("malformed schedule: negative block slot")
+    return DeviceSchedule(
+        up(a_slot), up(b_slot), up(cj),
+        up(np.append(starts, w)), up(seg_ci), up(seg_cj), s.kind,
+        top(a_slot), top(b_slot),
+        top(cj) if s.kind == "panel" else top(seg_cj))
+
+
+def _psums(a_data, b_data, ds: DeviceSchedule):
+    """Per-entry block products and each entry's segment index."""
+    psums = torch.bmm(a_data.float()[ds.a_slot], b_data.float()[ds.b_slot])
+    seg_of = torch.repeat_interleave(
+        torch.arange(ds.n_seg, device=ds.device),
+        (ds.seg_start[1:] - ds.seg_start[:-1]).long())
+    return psums, seg_of
+
+
+def _crop(c, out_shape):
+    mb, nb, bm, bn = c.shape
+    c = c.transpose(1, 2).reshape(mb * bm, nb * bn)
+    return c[: out_shape[0], : out_shape[1]]
+
+
+def stream_spmm_plain(a_data: torch.Tensor, b_data: torch.Tensor,
+                      ds: DeviceSchedule, *, out_grid: Tuple[int, int],
+                      out_shape: Tuple[int, int]) -> torch.Tensor:
+    """K1 in plain PyTorch: sum each segment, place it at its destination.
+
+    Segments sum with ``index_add_``, sequential on the CPU and with
+    atomics on a card, so it agrees with the kernel to fp32 rounding.
+    """
+    mb, nb = out_grid
+    bm, bn = a_data.shape[1], b_data.shape[2]
+    c = torch.zeros((mb, nb, bm, bn), dtype=torch.float32,
+                    device=a_data.device)
+    if ds.n_work:
+        psums, seg_of = _psums(a_data, b_data, ds)
+        acc = torch.zeros((ds.n_seg, bm, bn), dtype=torch.float32,
+                          device=a_data.device).index_add_(0, seg_of, psums)
+        keep = (ds.seg_ci >= 0) & (ds.seg_ci < mb)   # pad runs dropped
+        c[ds.seg_ci[keep].long(), ds.seg_cj[keep].long()] = acc[keep]
+    return _crop(c, out_shape)
+
+
+def stream_panel_spmm_plain(a_data: torch.Tensor, b_data: torch.Tensor,
+                            ds: DeviceSchedule, *,
+                            out_grid: Tuple[int, int],
+                            out_shape: Tuple[int, int]) -> torch.Tensor:
+    """K2 in plain PyTorch: merge each psum into its segment's row panel at
+    column block ``cj``, then place the panels at their block rows."""
+    mb, nb = out_grid
+    bm, bn = a_data.shape[1], b_data.shape[2]
+    c = torch.zeros((mb, nb, bm, bn), dtype=torch.float32,
+                    device=a_data.device)
+    if ds.n_work:
+        psums, seg_of = _psums(a_data, b_data, ds)
+        flat = seg_of * nb + ds.cj.long()
+        panels = torch.zeros((ds.n_seg * nb, bm, bn), dtype=torch.float32,
+                             device=a_data.device).index_add_(0, flat, psums)
+        panels = panels.reshape(ds.n_seg, nb, bm, bn)
+        keep = (ds.seg_ci >= 0) & (ds.seg_ci < mb)   # pad runs dropped
+        c[ds.seg_ci[keep].long()] = panels[keep]
+    return _crop(c, out_shape)
+
+
+# -- kernel launches ----------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("stream_spmm")
+    if not getattr(lib, "_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flexagon_stream_spmm.argtypes = [p] * 7 + [i] * 5 + [p, i, i, p]
+        lib.flexagon_stream_spmm.restype = i
+        lib.flexagon_stream_panel_spmm.argtypes = \
+            [p] * 7 + [i] * 6 + [p, i, i, p]
+        lib.flexagon_stream_panel_spmm.restype = i
+        lib.flexagon_cuda_error_string.argtypes = [i]
+        lib.flexagon_cuda_error_string.restype = ctypes.c_char_p
+        lib._bound = True
+    return lib
+
+
+_MAX_GRID_YZ = 65535
+
+
+def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape):
+    """Everything the kernel assumes, checked on the host before launch."""
+    dev = a_data.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{dev}")
+    for label, t in (("a_data", a_data), ("b_data", b_data)):
+        if t.device != dev or ds.device != dev:
+            raise ValueError(f"{name}: operands and schedule must share one "
+                             f"device ({label} on {t.device})")
+        if t.dtype != torch.float32 or t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous float32 "
+                             f"(nnzb, rows, cols) block stack, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if a_data.shape[2] != b_data.shape[1]:
+        raise ValueError(f"{name}: block depths disagree, A blocks "
+                         f"{tuple(a_data.shape[1:])}, B blocks "
+                         f"{tuple(b_data.shape[1:])}")
+    if ds.max_a_slot >= a_data.shape[0] or ds.max_b_slot >= b_data.shape[0]:
+        raise ValueError(f"{name}: schedule slots exceed the block stacks")
+    mb, nb = out_grid
+    bm, bn = a_data.shape[1], b_data.shape[2]
+    m, n = out_shape
+    if m > mb * bm or n > nb * bn or ds.max_cj >= nb:
+        raise ValueError(f"{name}: output {out_shape} / grid {out_grid} "
+                         f"disagree with the blocks or the schedule")
+    if nb > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: {nb} column blocks exceed the grid limit")
+
+
+def _launch(entry: str, a_data, b_data, ds: DeviceSchedule, out_grid,
+            out_shape, out_dtype, pointers, dims) -> torch.Tensor:
+    """Check, zero C, and launch one C entry of ``csrc/stream_spmm.cu``
+    over ``pointers`` (the work list's arrays) and the ints ``dims``.
+
+    The caller counts the launch."""
+    lib = _lib()
+    name = entry.removeprefix("flexagon_")
+    _check(name, a_data, b_data, ds, out_grid, out_shape)
+    c = torch.zeros(tuple(out_shape), dtype=torch.float32,
+                    device=a_data.device)
+    bm, bk, bn = a_data.shape[1], a_data.shape[2], b_data.shape[2]
+    stream = torch.cuda.current_stream(a_data.device).cuda_stream
+    err = getattr(lib, entry)(
+        *[ctypes.c_void_p(t.data_ptr()) for t in (a_data, b_data, *pointers)],
+        ds.n_seg, *dims, bm, bk, bn, out_grid[0],
+        ctypes.c_void_p(c.data_ptr()), out_shape[0], out_shape[1],
+        ctypes.c_void_p(stream))
+    if err:
+        msg = lib.flexagon_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+    return c.to(out_dtype)
+
+
+def stream_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
+                ds: DeviceSchedule, *, out_grid: Tuple[int, int],
+                out_shape: Tuple[int, int],
+                out_dtype=torch.float32) -> torch.Tensor:
+    """Run a destination-major schedule through the block-run kernel (K1).
+
+    ``a_data``/``b_data`` are the compressed operands' block stacks
+    (``(nnzb, bm, bk)`` / ``(nnzb, bk, bn)``); ``ds`` is the
+    :class:`DeviceSchedule` on the operands' device.  Returns the dense
+    ``out_shape`` product.  An empty schedule returns zeros and launches
+    nothing.
+    """
+    if a_data.device.type == "cpu":
+        out = stream_spmm_plain(a_data, b_data, ds, out_grid=out_grid,
+                                out_shape=out_shape)
+        return out.to(out_dtype)
+    if ds.n_work == 0:
+        return torch.zeros(tuple(out_shape), dtype=out_dtype,
+                           device=a_data.device)
+    out = _launch("flexagon_stream_spmm", a_data, b_data, ds, out_grid,
+                  out_shape, out_dtype,
+                  (ds.a_slot, ds.b_slot, ds.seg_start, ds.seg_ci, ds.seg_cj),
+                  ())
+    stream_spmm.launches += 1
+    return out
+
+
+stream_spmm.launches = 0
+
+
+def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
+                      ds: DeviceSchedule, *, out_grid: Tuple[int, int],
+                      out_shape: Tuple[int, int],
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Run a row-major schedule through the row-panel kernel (K2).
+
+    Arguments as :func:`stream_spmm`.  Each run is one output block row;
+    the kernel tiles its ``(bm, Nb*bn)`` panel by column blocks.
+    """
+    if a_data.device.type == "cpu":
+        out = stream_panel_spmm_plain(a_data, b_data, ds, out_grid=out_grid,
+                                      out_shape=out_shape)
+        return out.to(out_dtype)
+    if ds.n_work == 0:
+        return torch.zeros(tuple(out_shape), dtype=out_dtype,
+                           device=a_data.device)
+    out = _launch("flexagon_stream_panel_spmm", a_data, b_data, ds, out_grid,
+                  out_shape, out_dtype,
+                  (ds.a_slot, ds.b_slot, ds.cj, ds.seg_start, ds.seg_ci),
+                  (out_grid[1],))
+    stream_panel_spmm.launches += 1
+    return out
+
+
+stream_panel_spmm.launches = 0

@@ -1,0 +1,179 @@
+"""The port's plan API on the CPU against the JAX package's.
+
+All six dataflows and the dense escape through
+``flexagon_plan(..., backend="cuda", device="cpu")`` (the kernels' plain
+versions) against JAX ``backend="pallas"`` in interpret mode, with
+``rtol=atol=1e-4``; the plan-once contract (``PHASE1_COUNTERS``, no
+host→device copy of plan arrays on ``apply``); ``PlanCache``; and the
+arguments whose machinery is not ported yet.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro import flexagon_plan as jax_flexagon_plan
+from repro.core.formats import random_sparse_dense
+
+import repro_torch
+from repro_torch import (PHASE1_COUNTERS, PlanCache, SparseOperand,
+                         flexagon_plan, get_backend, get_policy)
+from repro_torch.core.dataflows import DATAFLOWS
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+BS = (8, 8, 8)
+
+
+def _case(seed=0, m=32, k=48, n=40, da=0.4, db=0.6):
+    rng = np.random.default_rng(seed)
+    a = random_sparse_dense(rng, (m, k), density=da, block_shape=BS[:2])
+    b = random_sparse_dense(rng, (k, n), density=db, block_shape=BS[1:])
+    return a, b
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_six_dataflows_match_pallas(dataflow, backend):
+    a, b = _case(seed=1)
+    want = np.asarray(jax_flexagon_plan(a, b, dataflow=dataflow,
+                                        block_shape=BS, backend="pallas")
+                      .apply(a, b))
+    plan = flexagon_plan(a, b, dataflow=dataflow, block_shape=BS,
+                         backend=backend, device="cpu")
+    assert plan.dataflow == dataflow and "dense" not in plan.aux
+    got = plan.apply(torch.as_tensor(a), torch.as_tensor(b))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+    packed = plan.apply(plan.pack_a(a), plan.pack_b(b))
+    torch.testing.assert_close(packed, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dataflow", ["ip_m", "op_n", "gust_m", "auto"])
+def test_dense_escape_matches_pallas(dataflow):
+    a, b = _case(seed=2, da=0.9, db=0.9)
+    jp = jax_flexagon_plan(a, b, dataflow=dataflow, block_shape=BS,
+                           backend="pallas")
+    tp = flexagon_plan(a, b, dataflow=dataflow, block_shape=BS,
+                       backend="cuda", device="cpu")
+    assert "dense" in jp.aux and "dense" in tp.aux
+    np.testing.assert_allclose(tp.apply(a, b).numpy(),
+                               np.asarray(jp.apply(a, b)), **TOL)
+
+
+def test_auto_choice_matches_pallas_under_tpu_numbers():
+    import dataclasses
+
+    from repro.core.selector import TPUSpec
+    from repro_torch.core.selector import DeviceSpec
+
+    spec = DeviceSpec(**dataclasses.asdict(TPUSpec()))
+    for seed, (da, db) in enumerate([(0.2, 0.9), (0.9, 0.1), (0.5, 0.5)]):
+        a, b = _case(seed=seed, da=da, db=db)
+        jp = jax_flexagon_plan(a, b, block_shape=BS, backend="pallas")
+        tp = flexagon_plan(a, b, block_shape=BS, backend="cuda",
+                           device="cpu", spec=spec)
+        assert jp.dataflow == tp.dataflow
+        assert jp.fingerprint == tp.fingerprint
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_apply_does_no_phase1_work_and_no_upload(backend, monkeypatch):
+    a, b = _case(seed=3)
+    plans = [flexagon_plan(a, b, dataflow=d, block_shape=BS, backend=backend,
+                           device="cpu") for d in DATAFLOWS]
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    before = dict(PHASE1_COUNTERS)
+    uploads = []
+    real_as_tensor = torch.as_tensor
+
+    def counting_as_tensor(x, *args, **kwargs):
+        if isinstance(x, np.ndarray):
+            uploads.append(x.shape)
+        return real_as_tensor(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "as_tensor", counting_as_tensor)
+    for plan in plans:
+        for _ in range(2):
+            out = plan.apply(ta, tb)
+            np.testing.assert_allclose(out.numpy(), a @ b, **TOL)
+    assert PHASE1_COUNTERS == before
+    assert uploads == [], "apply copied host arrays to the device"
+
+
+def test_plan_reuse_same_pattern_new_values():
+    a, b = _case(seed=7)
+    plan = flexagon_plan(a, b, block_shape=BS, backend="cuda", device="cpu")
+    before = dict(PHASE1_COUNTERS)
+    for scale in (1.0, -2.5, 100.0):
+        a2, b2 = a * scale, b * 0.5
+        np.testing.assert_allclose(plan.apply(a2, b2).numpy(), a2 @ b2,
+                                   **TOL)
+    assert PHASE1_COUNTERS == before
+    assert plan.matches(a * 7.0, b)
+    a_other, _ = _case(seed=99, da=0.15)
+    assert not plan.matches(a_other, b)
+
+
+def test_with_backend_shares_phase1():
+    a, b = _case(seed=8)
+    plan = flexagon_plan(a, b, dataflow="gust_n", block_shape=BS,
+                         backend="cuda", device="cpu")
+    ref = plan.with_backend("reference")
+    assert ref.backend == "reference" and ref.index_plan is plan.index_plan
+    torch.testing.assert_close(ref.apply(a, b), plan.apply(a, b), **TOL)
+
+
+def test_plan_cache_counters_and_lru():
+    a, b = _case(seed=4)
+    cache = PlanCache(maxsize=2)
+    p1 = cache.get(a, b, block_shape=BS, backend="cuda", device="cpu")
+    p2 = cache.get(a * 3.0, b, block_shape=BS, backend="cuda", device="cpu")
+    assert p1 is p2 and (cache.builds, cache.hits) == (1, 1)
+    cache.get(a, b, dataflow="op_m", block_shape=BS, backend="cuda",
+              device="cpu")
+    assert cache.builds == 2 and len(cache) == 2
+    a3, _ = _case(seed=5, da=0.2)
+    cache.get(a3, b, block_shape=BS, backend="cuda", device="cpu")
+    assert cache.evictions == 1 and len(cache) == 2
+    assert cache.stats == {"hits": 1, "misses": 3, "evictions": 1,
+                           "size": 2, "maxsize": 2}
+
+
+def test_sparse_operand_round_trip():
+    a, _ = _case(seed=6)
+    for fmt in ("bcsr", "bcsc"):
+        op = SparseOperand.from_dense(a, fmt, BS[:2], device="cpu")
+        np.testing.assert_array_equal(op.todense().numpy(), a)
+        other = op.convert("bcsc" if fmt == "bcsr" else "bcsr")
+        np.testing.assert_array_equal(other.todense().numpy(), a)
+    for fmt in ("csr", "csc"):
+        op = SparseOperand.from_dense(a, fmt)
+        np.testing.assert_array_equal(op.todense(), a)
+
+
+@pytest.mark.parametrize("kwarg", [
+    {"memory_budget": object()}, {"mesh": object()},
+    {"partition": object()}, {"dataflow": "mixed"}])
+def test_unported_arguments_raise(kwarg):
+    a, b = _case(seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flexagon_plan(a, b, block_shape=BS, device="cpu", **kwarg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PlanCache().get(a, b, block_shape=BS, device="cpu", **kwarg)
+
+
+@pytest.mark.parametrize("policy", ["simulator", "autotune", "learned"])
+def test_unported_policies_raise(policy):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_policy(policy)
+
+
+def test_verify_is_accepted():
+    a, b = _case(seed=0)
+    plan = flexagon_plan(a, b, block_shape=BS, backend="cuda", device="cpu",
+                         verify=True)
+    np.testing.assert_allclose(plan.apply(a, b).numpy(), a @ b, **TOL)
+
+
+def test_registry_has_both_backends():
+    assert repro_torch.available_backends() == ("cuda", "reference")
+    assert get_backend("cuda").dense_threshold == 0.5

@@ -1,0 +1,154 @@
+"""The port's stream kernels, plain versions on the CPU, against the JAX
+Pallas kernels in interpret mode.
+
+K1 (``stream_spmm``, IP and OP schedules) and K2 (``stream_panel_spmm``,
+Gustavson schedules) at blocks 8, 16 and 32 with ragged edges, on plain,
+``pad_schedule``-padded and empty schedules.  Tolerance ``rtol=atol=1e-4``
+as in ``tests/test_stream_kernels.py``: both sides sum in fp32, in
+different orders.  The CUDA kernels themselves run only on the card
+(``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dataflows as jdf
+from repro.core import formats as jfm
+from repro import kernels as jkernels
+from repro.kernels import stream as jks
+
+from repro_torch.core import dataflows as tdf
+from repro_torch.core import formats as tfm
+from repro_torch import kernels as tkernels
+from repro_torch.kernels import ip_spmm
+from repro_torch.kernels import stream as tks
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+FAMILIES = {
+    # family: (A format, B format, builder, schedule kind)
+    "ip": ("bcsr", "bcsc", "build_ip_plan", None),
+    "op": ("bcsc", "bcsr", "build_op_plan", True),
+    "gust": ("bcsr", "bcsr", "build_gust_plan", False),
+}
+
+
+def _case(block, seed):
+    rng = np.random.default_rng(seed)
+    m, k, n = 2 * block + 3, 3 * block + 1, 2 * block + 5
+    a = jfm.random_sparse_dense(rng, (m, k), density=0.6,
+                                block_shape=(block, block))
+    b = jfm.random_sparse_dense(rng, (k, n), density=0.6,
+                                block_shape=(block, block))
+    return a, b
+
+
+def _schedules(family, a, b, block):
+    """(jax operands, torch operands, jax schedule, torch schedule)."""
+    fa, fb, builder, by_dest = FAMILIES[family]
+    bs = (block, block)
+    ja = getattr(jfm, f"dense_to_{fa}")(a, bs)
+    jb = getattr(jfm, f"dense_to_{fb}")(b, bs)
+    ta = getattr(tfm, f"dense_to_{fa}")(a, bs, device="cpu")
+    tb = getattr(tfm, f"dense_to_{fb}")(b, bs, device="cpu")
+    jp = getattr(jdf, builder)(ja, jb)
+    tp = getattr(tdf, builder)(ta, tb)
+    if by_dest is None:
+        return ja, jb, ta, tb, jks.schedule_from_ip(jp), \
+            tks.schedule_from_ip(tp)
+    return ja, jb, ta, tb, jks.schedule_from_stream(jp, by_dest=by_dest), \
+        tks.schedule_from_stream(tp, by_dest=by_dest)
+
+
+def _run_both(family, ja, jb, ta, tb, js, ts):
+    grid = (ja.grid[0], jb.grid[1])
+    shape = (ja.shape[0], jb.shape[1])
+    jfn = jks.stream_panel_spmm if family == "gust" else jks.stream_spmm
+    tfn = tks.stream_panel_spmm if family == "gust" else tks.stream_spmm
+    want = np.asarray(jfn(ja.data, jb.data, js, out_grid=grid,
+                          out_shape=shape, interpret=True))
+    got = tfn(ta.data, tb.data, tks.device_schedule(ts, "cpu"), out_grid=grid,
+              out_shape=shape)
+    return got, want
+
+
+@pytest.mark.parametrize("variant", ["plain", "padded", "empty"])
+@pytest.mark.parametrize("family", ["ip", "op", "gust"])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_plain_kernels_match_pallas(block, family, variant):
+    a, b = _case(block, seed=block)
+    ja, jb, ta, tb, js, ts = _schedules(family, a, b, block)
+    if variant == "padded":
+        oob = ja.grid[0]
+        js = jks.pad_schedule(js, js.n_work + 5, js.n_runs + 3, oob)
+        ts = tks.pad_schedule(ts, ts.n_work + 5, ts.n_runs + 3, oob)
+    elif variant == "empty":
+        js, ts = jks._empty_schedule(js.kind), tks._empty_schedule(ts.kind)
+    before = (tks.stream_spmm.launches, tks.stream_panel_spmm.launches)
+    got, want = _run_both(family, ja, jb, ta, tb, js, ts)
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if variant == "empty":
+        assert not got.any()
+    else:
+        np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+    # the CPU path runs the plain version: no kernel launch is counted
+    assert (tks.stream_spmm.launches,
+            tks.stream_panel_spmm.launches) == before
+
+
+@pytest.mark.parametrize("family", ["ip", "op", "gust"])
+def test_device_schedule_segments(family):
+    """One segment per run, destinations from run_ci/run_cj, pads apart."""
+    a, b = _case(8, seed=1)
+    *_, ts = _schedules(family, a, b, 8)
+    ds = tks.device_schedule(ts, "cpu")
+    assert ds.n_seg == ts.n_runs and ds.n_work == ts.n_work
+    starts = ds.seg_start.numpy()
+    assert starts[0] == 0 and starts[-1] == ts.n_work
+    np.testing.assert_array_equal(starts[:-1], np.flatnonzero(ts.is_first))
+    np.testing.assert_array_equal(ds.seg_ci.numpy(), ts.run_ci)
+    padded = tks.pad_schedule(ts, ts.n_work + 4, ts.n_runs + 2, 99)
+    dp = tks.device_schedule(padded, "cpu")
+    # every pad entry is a segment of its own, aimed at the dropped row
+    assert dp.n_seg == ts.n_runs + 4
+    assert (dp.seg_ci.numpy()[ts.n_runs:] == 99).all()
+
+
+def test_out_dtype_and_schedule_forms_agree():
+    """A host schedule (uploaded by the one-shot wrapper) and a device
+    schedule give the same product."""
+    a, b = _case(16, seed=2)
+    _, _, ta, tb, _, ts = _schedules("ip", a, b, 16)
+    ds = tks.device_schedule(ts, "cpu")
+    kw = dict(out_grid=(ta.grid[0], tb.grid[1]),
+              out_shape=(ta.shape[0], tb.shape[1]))
+    host = ip_spmm(ta, tb, schedule=ts)
+    dev = tks.stream_spmm(ta.data, tb.data, ds, **kw)
+    torch.testing.assert_close(host, dev, rtol=0, atol=0)
+    wide = tks.stream_spmm(ta.data, tb.data, ds, out_dtype=torch.float64,
+                           **kw)
+    assert wide.dtype == torch.float64
+
+
+@pytest.mark.parametrize("family", ["ip", "op", "gust"])
+@pytest.mark.parametrize("block", [8, 16])
+def test_one_shot_wrappers_match_pallas(block, family):
+    """``ip_spmm``/``op_spmm``/``gust_spmm`` with no plan or schedule build
+    both on the host, as the JAX wrappers do, and agree with them."""
+    a, b = _case(block, seed=10 + block)
+    ja, jb, ta, tb, _, _ = _schedules(family, a, b, block)
+    fn = {"ip": "ip_spmm", "op": "op_spmm", "gust": "gust_spmm"}[family]
+    want = np.asarray(getattr(jkernels, fn)(ja, jb, interpret=True))
+    got = getattr(tkernels, fn)(ta, tb)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+
+
+def test_malformed_schedule_rejected():
+    a, b = _case(8, seed=3)
+    *_, ts = _schedules("op", a, b, 8)
+    ts.is_first = ts.is_first.copy()
+    ts.is_first[0] = 0
+    with pytest.raises(ValueError, match="does not start a run"):
+        tks.device_schedule(ts, "cpu")
