@@ -29,7 +29,22 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    ``CudaBackend.kernel_call`` makes it and held bit for bit to the main
    path's own result: checked against its plain version on the same
    inputs, and timed beside the plain version, one ``torch.matmul`` on
-   the densified inputs, and the least time the card could take.
+   the densified inputs, and the least time the card could take;
+7. K3 (the MoE grouped matmul) against its plain version and an fp64
+   product: bm 16, 64 and 128, bf16 and fp32 inputs, empty groups, groups
+   larger than one tile, and the idle tiles of the device padding;
+8. the serving path: granite-moe-1b-a400m at its published width (24
+   layers, d_model 1024, 32 experts top-8, vocab 49155) with random bf16
+   weights from a seed and the MoE dispatch set to ``sort``, serving 8
+   requests (prompts of 32-128 tokens, 16 new tokens each) through
+   ``repro_torch.serve.ServeEngine`` with 4 slots and ``max_seq`` 256.  K3's
+   launches over that run must be 3 x 24 x (prefills + decode steps);
+9. the path check: one prompt prefilled through ``sort`` (K3) and through
+   ``scatter`` (``torch.einsum``, no kernel); their last-position logits
+   must agree within a bf16 bound.  Every K3 call of that prefill and of
+   one 4-slot decode step is replayed against its plain version and an
+   fp64 product of its real rows, and timed beside the plain version,
+   ``torch._grouped_mm`` on the real rows, and its bound.
 
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  With no CUDA device it exits 2 before
@@ -37,8 +52,10 @@ printing any result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 import sys
 import time
 from pathlib import Path
@@ -49,11 +66,24 @@ OUT_DIR = ROOT / "chiprun_out"
 #: NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12      # dense tensor-core peak
 
 TOL = 1e-4          # rtol = atol for kernel vs plain, both fp32
 REL_TOL = 1e-4      # max|out - ref| / max|ref| against the fp64 product
 SEED = 0
 REPS = 20
+#: bf16 output of K3 against its plain version: the same fp32 sum in
+#: another order, rounded once to bf16, lands at most one bf16 ulp
+#: (2**-7 relative) apart
+BF16_ULP = 2.0 ** -7
+#: a bf16 result against an fp64 product: max|out - ref| / max|ref|, one
+#: rounding to 8 significant bits (2**-8) plus the fp32 sum's error
+BF16_REL_TOL = 5e-3
+#: sort vs scatter last-position logits, max|d| / max|logits|: both run
+#: the whole model in bf16 and round at different points in each of the
+#: 24 MoE layers; a 24-layer granite at d_model 256 on the CPU differed by
+#: 0.024-0.035, and the bound allows twice that for the full width
+LOGIT_TOL = 0.08
 
 
 def log(*parts) -> None:
@@ -67,7 +97,11 @@ def build_kernels():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = {name: build.build(name)[1] for name in build.SOURCES}
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        futures = {name: pool.submit(build.build, name)
+                   for name in build.SOURCES}
+        logs = {name: f.result()[1] for name, f in futures.items()}
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(logs)}; nvcc {build.FLAGS[1]})")
     for name, text in logs.items():
@@ -454,11 +488,355 @@ def time_main_path(calls, worst):
     return totals
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+
+def _gmm_ref64(x_real, w, sizes):
+    """fp64 product of the real rows, grouped in order: (rows, N)."""
+    import torch
+
+    out, start = [], 0
+    for g, size in enumerate(sizes):
+        out.append(x_real[start:start + size].double() @ w[g].double())
+        start += size
+    return torch.cat(out) if out else torch.zeros(
+        (0, w.shape[2]), dtype=torch.float64, device=w.device)
+
+
+def _gmm_check(label, got, want, ref64, scatter):
+    """Kernel vs plain (fp32 out: rtol = atol = TOL; bf16 out: one bf16
+    ulp) and the real rows vs fp64; raises on a miss.  Returns
+    (max|kernel - plain|, the real rows' error relative to fp64)."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+    if got.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=TOL, atol=TOL)
+        rel_tol = REL_TOL
+    else:
+        ok = torch.allclose(got.float(), want.float(), rtol=BF16_ULP,
+                            atol=TOL)
+        rel_tol = BF16_REL_TOL
+    rel = _rel_err(got[scatter.long()], ref64) if ref64.numel() else 0.0
+    if not ok or rel > rel_tol:
+        raise SystemExit(f"moe_gmm {label}: max|kernel-plain|={err:.3e}, "
+                         f"rel err vs fp64 {rel:.2e} (tol {rel_tol:g})")
+    return err, rel
+
+
+def gmm_sweep(device):
+    """K3 vs its plain version and fp64: bm 16/64/128, bf16 and fp32 in,
+    the group sizes of tests/test_kernels.py scaled to bm (empty groups,
+    groups of several tiles) plus a ragged case, on the device padding
+    (idle tiles after the real ones)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+
+    rng = np.random.default_rng(SEED + 3)
+    k, n = 256, 200
+    worst = 0.0
+    for bm in (16, 64, 128):
+        cases = [[s * bm // 8 for s in sizes]
+                 for sizes in ([8, 16, 0, 24], [0, 0, 8], [32])]
+        cases.append([bm // 2 + 3, 0, 2 * bm + 1, 1])    # partial tiles
+        for sizes in cases:
+            rows = sum(sizes)
+            gids, scatter = mg.pad_groups_device(
+                torch.tensor(sizes, device=device), bm, rows)
+            real_tiles = sum(-(-s // bm) for s in sizes)
+            x = torch.as_tensor(rng.standard_normal((rows, k), np.float32),
+                                device=device)
+            w = torch.as_tensor(
+                rng.standard_normal((len(sizes), k, n), np.float32),
+                device=device)
+            for dt in (torch.bfloat16, torch.float32):
+                xd, wd = x.to(dt), w.to(dt)
+                xp = torch.zeros((gids.numel() * bm, k), dtype=dt,
+                                 device=device)
+                xp[scatter.long()] = xd
+                ref64 = _gmm_ref64(xd, wd, sizes)
+                for out_dt in sorted({dt, torch.float32}, key=str):
+                    kw = dict(bm=bm, bk=8, bn=8, out_dtype=out_dt)
+                    got = mg.gmm(xp, wd, gids, **kw)
+                    want = mg.gmm_plain(xp, wd, gids, **kw)
+                    torch.cuda.synchronize()
+                    label = (f"bm={bm} sizes={sizes} in={dt} "
+                             f"out={out_dt}")
+                    err, rel = _gmm_check(label, got, want, ref64, scatter)
+                    if got[real_tiles * bm:].any():
+                        raise SystemExit(f"moe_gmm {label}: an idle tile "
+                                         "wrote non-zero rows")
+                    log(f"sweep moe_gmm {label:58s} tiles={gids.numel():3d} "
+                        f"(real {real_tiles:3d}) max|kernel-plain|="
+                        f"{err:.3e} rel vs fp64 {rel:.1e} ok")
+                    worst = max(worst, err)
+    return worst
+
+
+# -- phases 8 and 9 ----------------------------------------------------------
+
+
+GRANITE = "granite-moe-1b-a400m"
+
+
+def _granite(device, strategy):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(GRANITE)
+    cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, strategy=strategy))
+    return build_model(cfg, device=device)
+
+
+def serve_granite(device):
+    """Serve 8 requests at granite's published width with sort dispatch.
+
+    Returns (model, params, prompts, engine)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs import default_buckets
+    from repro_torch.serve import Request, ServeEngine
+
+    model = _granite(device, "sort")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve {GRANITE}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B random "
+        f"bf16 params (seed {SEED}) made in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n))
+               for n in rng.integers(32, 129, size=8)]
+    engine = ServeEngine(model, params, slots=4, max_seq=256)
+    # fine buckets (1% wide) so the printed quantiles are read to 1%
+    engine.metrics.histogram("serve.latency.decode_step_s",
+                             buckets=default_buckets(1e-4, 1e1, 200))
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid, p, max_new_tokens=16))
+    results = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    new = sum(len(v) for v in results.values())
+    for rid in sorted(results):
+        log(f"serve req {rid}: prompt {len(prompts[rid]):3d} tokens -> "
+            f"{results[rid]}")
+    if sorted(results) != list(range(8)) or any(
+            len(v) != 16 or not all(0 <= t < cfg.vocab for t in v)
+            for v in results.values()):
+        raise SystemExit("serve: a request did not get 16 tokens in the "
+                         "vocabulary")
+    lat = engine.latency_stats()
+    dec = lat["serve.latency.decode_step_s"]
+    pre = lat["serve.latency.prefill_s"]
+    log(f"serve: {len(results)} requests, {new} new tokens in {wall:.3f} s "
+        f"({new / wall:.1f} tok/s, prefills included); decode step p50 "
+        f"{dec['p50'] * 1e3:.2f} ms p99 {dec['p99'] * 1e3:.2f} ms (min "
+        f"{dec['min'] * 1e3:.2f}, max {dec['max'] * 1e3:.2f}, "
+        f"{dec['count']} steps); prefill mean {pre['mean'] * 1e3:.2f} ms "
+        f"(min {pre['min'] * 1e3:.2f}, max {pre['max'] * 1e3:.2f}, "
+        f"{pre['count']} prefills); stats {engine.stats}")
+    return model, params, prompts, engine
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class K3Recorder:
+    """Records every K3 call ``_moe_sort`` makes while active, with the
+    group sizes and scatter index of the padding it ran on.  It wraps the
+    MoE module's names for the kernel and the padding, so the kernel's
+    own launch counter is untouched."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.gmm, self.pad = moe, moe.gmm, moe.pad_groups_device
+        self.calls, last = [], {}
+
+        def pad(group_sizes, bm, rows):
+            out = self.pad(group_sizes, bm, rows)
+            last["sizes"], last["scatter"] = group_sizes, out[1]
+            return out
+
+        def gmm(x, w, group_ids, **kw):
+            out = self.gmm(x, w, group_ids, **kw)
+            self.calls.append(dict(x=x, w=w, gids=group_ids, kw=kw, out=out,
+                                   **last))
+            return out
+
+        moe.pad_groups_device, moe.gmm = pad, gmm
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.gmm, self.moe.pad_groups_device = self.gmm, self.pad
+
+
+def path_check(model, params, prompts):
+    """Sort (K3) vs scatter (einsum) logits on one prompt; returns the K3
+    calls of that prefill and of one 4-slot decode step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serve import Request, ServeEngine
+
+    prompt = prompts[0][None]
+    with K3Recorder() as rec:
+        sort = model.prefill(params, prompt, model.init_cache(1, 256))[0]
+    scatter_model = dataclasses.replace(model, cfg=_granite(
+        model.device, "scatter").cfg)
+    scat = scatter_model.prefill(params, prompt,
+                                 scatter_model.init_cache(1, 256))[0]
+    a, b = sort[0, -1].float(), scat[0, -1].float()
+    gap = float((a - b).abs().max() / b.abs().max())
+    log(f"path check: prefill of {prompt.shape[1]} tokens, sort vs scatter "
+        f"last-position logits max|d|/max|logits| = {gap:.4f} (tol "
+        f"{LOGIT_TOL:g}); top-1 {int(a.argmax())} vs {int(b.argmax())}")
+    if gap > LOGIT_TOL:
+        raise SystemExit(f"sort and scatter logits differ by {gap:.4f}")
+    engine = ServeEngine(model, params, slots=4, max_seq=256)
+    for rid, p in enumerate(prompts[:4]):
+        engine.submit(Request(rid, p, max_new_tokens=3))
+    with K3Recorder() as dec:
+        engine.step()
+    torch.cuda.synchronize()
+    step_breakdown(engine)
+    n = 3 * model.cfg.n_layers
+    if len(rec.calls) != n or len(dec.calls) != n:
+        raise SystemExit(f"path check: {len(rec.calls)} prefill and "
+                         f"{len(dec.calls)} decode K3 calls, want {n} each")
+    return ([("prefill", c) for c in rec.calls]
+            + [("decode", c) for c in dec.calls])
+
+
+def step_breakdown(engine):
+    """Where one 4-slot decode step's time goes: wall time on the host
+    clock (the step ends in a sync), device time by kernel family from the
+    profiler, and the device's idle share of the step."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_family, by_name = Counter(), Counter()
+    for e in events:
+        name = e.name.lower()
+        family = ("K3 gmm_kernel" if "gmm_kernel" in name
+                  else "matmul" if ("gemm" in name or "cutlass" in name
+                                    or "sm90" in name)
+                  else "copy/fill" if ("memcpy" in name or "memset" in name
+                                       or "fill" in name or "copy" in name)
+                  else "other")
+        by_family[family] += e.device_time_total / 1e3
+        by_name[e.name[:60]] += e.device_time_total / 1e3
+    busy = sum(by_family.values())
+    log(f"decode step breakdown: wall {wall:.2f} ms, device busy "
+        f"{busy:.3f} ms over {len(events)} device events (idle share "
+        f"{1 - busy / wall:.3f}); by family "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in by_family.most_common()))
+    log("decode step top kernels: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in by_name.most_common(6)))
+
+
+def time_k3(calls, worst):
+    """Replay each recorded K3 call: bit for bit against the main path's,
+    against its plain version and fp64, then timed beside the plain
+    version, ``torch._grouped_mm`` on the real rows, and its bound."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+
+    has_lib = hasattr(torch, "_grouped_mm")
+    if not has_lib:
+        log(f"library: none (torch {torch.__version__} has no "
+            "torch._grouped_mm)")
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if has_lib else None,
+         "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0,
+         "calls": len(calls)}
+    for i, (phase, c) in enumerate(calls):
+        x, w, gids, kw = c["x"], c["w"], c["gids"], c["kw"]
+        sizes = c["sizes"].tolist()
+        scatter = c["scatter"].long()
+        got = mg.gmm(x, w, gids, **kw)
+        want = mg.gmm_plain(x, w, gids, **kw)
+        if not torch.equal(got, c["out"]):
+            raise SystemExit(f"moe_gmm {phase} call {i}: the replay differs "
+                             "from the main path's result")
+        x_real = x[scatter]
+        err, rel = _gmm_check(f"{phase} call {i}", got, want,
+                              _gmm_ref64(x_real, w, sizes), scatter)
+        worst = max(worst, err)
+        ms, _ = _device_ms(functools.partial(mg.gmm, x, w, gids, **kw))
+        plain_ms, _ = _device_ms(
+            functools.partial(mg.gmm_plain, x, w, gids, **kw))
+        lib = ""
+        if has_lib:
+            lib_fn = functools.partial(
+                torch._grouped_mm, x_real, w,
+                offs=torch.cumsum(c["sizes"], 0).to(torch.int32))
+            lib_err = float((lib_fn().float() - got[scatter].float())
+                            .abs().max())
+            lib_ms, _ = _device_ms(lib_fn)
+            t["library_ms"] += lib_ms
+            lib = f" library_ms={lib_ms:.4f} max|library-kernel|={lib_err:.2e}"
+        # bytes: the real x rows, the slabs of groups with rows, the real
+        # output rows, the tile ids; operations: the real rows' products
+        (k, n), r = w.shape[1:], scatter.numel()
+        active = sum(1 for s in sizes if s)
+        nbytes = x.element_size() * (r * k + active * k * n + r * n) \
+            + 4 * gids.numel()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * r * k * n / BF16_FLOP_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"time moe_gmm {phase:7s} call {i:3d} rows={r:4d} "
+            f"tiles={gids.numel():3d} groups={active:2d} K={k} N={n} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.5f} "
+            f"({by}) max|kernel-plain|={err:.2e} rel vs fp64 {rel:.1e}"
+            + lib)
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["bound_ms"] += bound
+        t[by] += bound
+    log(f"K3 times sum over {len(calls)} calls ({REPS} calls each after 3 "
+        "warm-up calls): one granite prefill and one 4-slot decode step")
+    return t, worst
+
+
 SOURCES = {
     "stream_spmm": ("src/repro_torch/csrc/stream_spmm.cu",
                     "src/repro/kernels/stream.py:330"),
     "stream_panel_spmm": ("src/repro_torch/csrc/stream_spmm.cu",
                           "src/repro/kernels/stream.py:415"),
+    "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
+                "src/repro/kernels/moe_gmm.py:31"),
 }
 
 
@@ -471,6 +849,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails where the repo is absent)
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import stream as ks
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
@@ -497,6 +876,36 @@ def main() -> int:
 
     replay_ffn(ffn_runs, calls)
     totals = time_main_path(calls, worst)
+    log(f"times above sum over the {sum(t['calls'] for t in totals.values())}"
+        f" distinct kernel calls of one main-path pass, on {card}; "
+        f"bound = sum over calls of max(bytes at {HBM_BYTES_PER_S:g} B/s, "
+        f"fp32 operations at {FP32_FLOP_PER_S:g}/s), bound_by = the side "
+        "that sets most of it; library = torch.matmul on the densified "
+        "inputs")
+    log(f"phases 1-6 done at {time.perf_counter() - t_start:.1f} s")
+
+    worst["moe_gmm"] = gmm_sweep(device)
+    ks.stream_spmm.launches = 0
+    ks.stream_panel_spmm.launches = 0
+    mg.gmm.launches = 0
+    model, params, prompts, engine = serve_granite(device)
+    torch.cuda.synchronize()
+    serving = {"moe_gmm": mg.gmm.launches,
+               "stream_spmm": ks.stream_spmm.launches,
+               "stream_panel_spmm": ks.stream_panel_spmm.launches}
+    stats = engine.stats
+    want = 3 * model.cfg.n_layers * (stats["prefills"]
+                                     + stats["decode_steps"])
+    log(f"serving-path kernel launches: {serving}; K3 want 3 x "
+        f"{model.cfg.n_layers} x ({stats['prefills']} prefills + "
+        f"{stats['decode_steps']} decode steps) = {want}")
+    if serving["moe_gmm"] <= 0 or serving["moe_gmm"] != want:
+        raise SystemExit(f"serving path: K3 launched {serving['moe_gmm']} "
+                         f"times, want {want}")
+    launches["moe_gmm"] = serving["moe_gmm"]
+    totals["moe_gmm"], worst["moe_gmm"] = time_k3(
+        path_check(model, params, prompts), worst["moe_gmm"])
+
     kernels = []
     for name, t in totals.items():
         src, replaces = SOURCES[name]
@@ -510,12 +919,9 @@ def main() -> int:
             else "operations",
             "library_ms": t["library_ms"], "calls_timed": t["calls"],
         })
-    log(f"times above sum over the {sum(t['calls'] for t in totals.values())}"
-        f" distinct kernel calls of one main-path pass, on {card}; "
-        f"bound = sum over calls of max(bytes at {HBM_BYTES_PER_S:g} B/s, "
-        f"fp32 operations at {FP32_FLOP_PER_S:g}/s), bound_by = the side "
-        "that sets most of it; library = torch.matmul on the densified "
-        "inputs")
+    log(f"moe_gmm: bound = sum over its calls of max(bytes at "
+        f"{HBM_BYTES_PER_S:g} B/s, bf16 operations at {BF16_FLOP_PER_S:g}/s)"
+        f"; library = torch._grouped_mm on the real rows; on {card}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

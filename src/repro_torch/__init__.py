@@ -1,8 +1,8 @@
 """Flexagon on PyTorch and CUDA: the port of the ``repro`` JAX package.
 
 Multi-dataflow SpMSpM for DNN serving on an NVIDIA H100.  The package
-mirrors ``repro``'s layout; this slice covers the plan-once/execute-many
-operator and its model-side consumer:
+mirrors ``repro``'s layout; it covers the plan-once/execute-many operator
+and the models and serving engine that consume it:
 
 - :func:`flexagon_plan` / :class:`FlexagonPlan` — plan once, execute many;
 - :class:`SparseOperand` / :class:`SparseFormat` — unified format surface;
@@ -10,7 +10,10 @@ operator and its model-side consumer:
 - ``repro_torch.backends`` — ``reference`` (torch executors) and ``cuda``
   (the hand-written kernels in ``repro_torch.kernels``), plus selection
   policies;
-- ``repro_torch.models`` — :func:`compress_ffn` / :func:`sparse_ffn_apply`;
+- ``repro_torch.models`` — :func:`compress_ffn` / :func:`sparse_ffn_apply`,
+  and the decoder LM (:func:`repro_torch.models.build_model`) with dense
+  and MoE FFNs, whose ``sort`` dispatch runs the grouped-matmul kernel;
+- ``repro_torch.serve`` — the continuous-batching ``ServeEngine``;
 - ``repro_torch.convert`` — values carried over from the JAX package.
 
 Entry points run on the card (``device=None`` → ``cuda``) unless the

@@ -26,7 +26,7 @@ import numpy as np
 
 from ..core import dataflows as df
 from ..core.selector import DeviceSpec, LayerShape, select_dataflow
-from .base import ExecutionBackend
+from .base import ExecutionBackend, allowed_dataflows, get_backend
 
 __all__ = [
     "SelectionContext",
@@ -72,6 +72,31 @@ class SelectionPolicy(abc.ABC):
     @abc.abstractmethod
     def select(self, ctx: SelectionContext) -> str:
         """Pick one dataflow from ``ctx.allowed``."""
+
+    def select_for_shape(self, shape: LayerShape, *,
+                         backend: Union[str, ExecutionBackend] = "reference",
+                         spec: DeviceSpec = DeviceSpec(),
+                         dtype="float32") -> str:
+        """Select for shape features alone (dense-pattern context).
+
+        For callers that have no concrete pattern, e.g. MoE dispatch
+        planning, where the routing pattern only exists at run time.  The
+        fingerprint carries the block shape and value dtype, as in the JAX
+        package.
+        """
+        be = get_backend(backend)
+        bm, bk, bn = shape.block
+        occ_a = np.ones((-(-shape.m // bm), -(-shape.k // bk)), dtype=bool)
+        occ_b = np.ones((-(-shape.k // bk), -(-shape.n // bn)), dtype=bool)
+        ctx = SelectionContext(
+            shape=shape, block_shape=tuple(shape.block), occ_a=occ_a,
+            occ_b=occ_b,
+            fingerprint=f"shape:{shape.m}x{shape.k}x{shape.n}"
+                        f":{shape.density_a:.4f}:{shape.density_b:.4f}"
+                        f":b{bm}x{bk}x{bn}:{np.dtype(dtype).name}",
+            backend=be, spec=spec,
+            allowed=allowed_dataflows(be, tuple(shape.block)))
+        return self.select(ctx)
 
 
 class HeuristicPolicy(SelectionPolicy):

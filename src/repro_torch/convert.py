@@ -15,7 +15,8 @@ from .api import SparseOperand
 from .config import resolve_device
 from .core.formats import SparseFormat
 
-__all__ = ["ffn_params_from_jax", "sparse_operand_from_jax"]
+__all__ = ["ffn_params_from_jax", "lm_params_from_jax",
+           "sparse_operand_from_jax"]
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -52,3 +53,38 @@ def sparse_operand_from_jax(op, *, device=None) -> SparseOperand:
     return SparseOperand(
         data, np.array(op.indptr), np.array(op.indices), tuple(op.shape),
         tuple(op.block_shape) if op.block_shape is not None else None, fmt)
+
+
+def _tree(x, dev):
+    if isinstance(x, dict):
+        return {k: _tree(v, dev) for k, v in x.items()}
+    return _tensor(x, dev)
+
+
+def lm_params_from_jax(tree: Dict[str, Any], cfg, *, device=None
+                       ) -> Dict[str, Any]:
+    """JAX ``LM.init`` params -> the port's, as tensors on ``device``.
+
+    The JAX stack keeps one entry per segment, each a list over the
+    segment's period of block dicts whose leaves are stacked along a leading
+    repeat axis; layer ``r * len(period) + j`` of a segment is repeat ``r``
+    of period position ``j``.  The port keeps one block dict per layer, in
+    layer order.  ``device=None`` resolves to the card.
+    """
+    dev = resolve_device(device)
+    blocks = []
+    for seg, (period, count) in zip(tree["blocks"], cfg.segments()):
+        stacked = [_tree(p, dev) for p in seg]
+        for r in range(count):
+            for j in range(len(period)):
+                blocks.append(_index(stacked[j], r))
+    out = {name: _tree(tree[name], dev)
+           for name in ("embed", "final_norm", "lm_head") if name in tree}
+    out["blocks"] = blocks
+    return out
+
+
+def _index(x, r):
+    if isinstance(x, dict):
+        return {k: _index(v, r) for k, v in x.items()}
+    return x[r]

@@ -7,6 +7,8 @@ PyTorch versions.
   ``csrc/stream_spmm.cu`` by ``build.py`` at first use;
 - ``ip_spmm`` / ``op_spmm`` / ``gust_spmm`` — the three dataflows as thin
   wrappers over those two kernels;
+- ``moe_gmm.py`` — the MoE grouped matmul ``gmm`` (K3, from
+  ``csrc/moe_gmm.cu``) and its group padding, host and device forms;
 - ``ref.py`` — the dense oracle.
 
 Plan-level dispatch lives in :mod:`repro_torch.backends.cuda`.

@@ -1,0 +1,183 @@
+"""Attention: GQA/MQA with RoPE, optional QK-norm / QKV bias / sliding window,
+blockwise (flash-style) prefill attention, and KV-cache decode.
+
+The port of ``repro.models.attention``, in plain PyTorch as the JAX module
+is plain JAX (no TPU kernel lies here).  Queries and keys are processed in
+blocks with a running (max, denominator) softmax in fp32; Python loops take
+the place of ``lax.map``/``lax.scan``.  Score and value products take bf16
+inputs widened to fp32, as JAX's ``preferred_element_type=float32``.
+
+Decode and prefill write K/V into the cache tensors in place and return
+them: the serving engine replaces its cache with the returned one, as it
+does in JAX, and keeps no copy of the old one.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init, rope
+
+__all__ = ["attn_init", "attn_apply", "attn_decode", "AttnCache",
+           "init_attn_cache", "blockwise_attention"]
+
+NEG_INF = -1e30
+
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor          # (B, S_max, Hkv, Dh)
+    v: torch.Tensor          # (B, S_max, Hkv, Dh)
+
+
+def attn_init(gen: torch.Generator, cfg, dtype=torch.float32):
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, hq * dh, bias=cfg.qkv_bias, dtype=dtype),
+        "wk": dense_init(gen, d, hkv * dh, bias=cfg.qkv_bias, dtype=dtype),
+        "wv": dense_init(gen, d, hkv * dh, bias=cfg.qkv_bias, dtype=dtype),
+        "wo": dense_init(gen, hq * dh, d, dtype=dtype),
+    }
+    if cfg.qk_norm:
+        p["qnorm"] = rmsnorm_init(dh, dtype, gen.device)
+        p["knorm"] = rmsnorm_init(dh, dtype, gen.device)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions):
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = dense(p["wq"], x).reshape(b, s, hq, dh)
+    k = dense(p["wk"], x).reshape(b, s, hkv, dh)
+    v = dense(p["wv"], x).reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k = rmsnorm(p["knorm"], k, cfg.norm_eps)
+    cos, sin = rope(positions, dh, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        block_q: int = 512, block_k: int = 1024,
+                        gqa_native: bool = False) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch.
+
+    q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh) with Hq a multiple of Hkv.
+    ``gqa_native=False`` repeats K/V to Hq heads, ``True`` groups query heads
+    against their kv head; ``q_offset`` positions the queries in the key
+    timeline; ``window`` enables sliding-window attention.
+    """
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    if not gqa_native and h != hkv:
+        k = torch.repeat_interleave(k, h // hkv, dim=2)
+        v = torch.repeat_interleave(v, h // hkv, dim=2)
+        hkv = h
+    n_rep = h // hkv
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    nq = -(-sq // block_q)
+    nk = -(-sk // block_k)
+    qf = q.float().reshape(b, sq, hkv, n_rep, dh)
+    kf, vf = k.float(), v.float()
+    k_pos_all = torch.arange(sk, device=dev)
+    outs = []
+    for qi in range(nq):
+        qb = qf[:, qi * block_q:(qi + 1) * block_q]
+        bq = qb.shape[1]
+        q_pos = q_offset + qi * block_q + torch.arange(bq, device=dev)
+        m = torch.full((b, hkv, n_rep, bq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, n_rep, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, n_rep, bq, dh), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            kb = kf[:, ki * block_k:(ki + 1) * block_k]
+            vb = vf[:, ki * block_k:(ki + 1) * block_k]
+            kp = k_pos_all[ki * block_k:(ki + 1) * block_k]
+            # grouped scores: kv head h serves its n_rep query heads (r)
+            s = torch.einsum("bqhrd,bkhd->bhrqk", qb, kb) * scale
+            mask = torch.ones((bq, kp.shape[0]), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = mask & (q_pos[:, None] >= kp[None, :])
+            if window is not None:
+                mask = mask & (q_pos[:, None] - window < kp[None, :])
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhrqk,bkhd->bhrqd", p, vb)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        # (B, hkv, r, bq, dh) -> (B, bq, hkv, r, dh)
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    out = torch.cat(outs, dim=1).reshape(b, sq, h, dh)
+    return out.to(v.dtype)
+
+
+def attn_apply(p, cfg, x, positions, *, window: Optional[int] = None,
+               causal: bool = True) -> torch.Tensor:
+    """Prefill/training attention.  x: (B, S, D).
+
+    Cross-attention (``cross_kv=``) belongs to the encoder-decoder, which
+    is not ported (ROADMAP queue 1, item 7).
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = blockwise_attention(q, k, v, causal=causal, window=window)
+    return dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+
+
+def init_attn_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+                    device=None) -> AttnCache:
+    hkv, dh = cfg.kv_heads, cfg.head_dim
+    return AttnCache(
+        k=torch.zeros((batch, max_seq, hkv, dh), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_seq, hkv, dh), dtype=dtype, device=device),
+    )
+
+
+def attn_decode(p, cfg, x, pos, cache: AttnCache, *,
+                window: Optional[int] = None):
+    """Single-token decode.  x: (B, 1, D); pos: (B,) per-sequence index
+    (per-slot positions enable continuous batching in the serve engine).
+
+    With sliding-window attention the cache is a ring buffer of size
+    ``window``; otherwise it covers the full context.  The new K/V are
+    written into ``cache`` in place.
+    """
+    b = x.shape[0]
+    hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    pos = pos.expand(b) if pos.dim() == 0 else pos
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+
+    s_max = cache.k.shape[1]
+    slot = pos % s_max if window is not None else pos
+    bidx = torch.arange(b, device=x.device)
+    cache.k[bidx, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[bidx, slot] = v[:, 0].to(cache.v.dtype)
+
+    # GQA-native decode: scores grouped by kv head, the cache never repeated
+    n_rep = hq // hkv
+    qg = q.reshape(b, 1, hkv, n_rep, dh)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
+                          cache.k.float()) / math.sqrt(dh)
+    idx = torch.arange(s_max, device=x.device)
+    pos_b = pos[:, None, None, None, None]
+    if window is not None:
+        valid = idx < torch.clamp_max(pos_b + 1, s_max)
+    else:
+        valid = idx <= pos_b
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(cache.v.dtype), cache.v)
+    return dense(p["wo"], out.reshape(b, 1, hq * dh)), cache

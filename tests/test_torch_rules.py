@@ -25,6 +25,7 @@ import repro_torch
 from repro_torch import PlanCache, compress_ffn, flexagon_plan
 from repro_torch.config import resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import stream as tks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -107,26 +108,39 @@ def _schedule_case():
     return a_r, b_c, b_r, ip, gust
 
 
-@pytest.mark.parametrize("kernel", ["stream_spmm", "stream_panel_spmm"])
+def _kernel_case(kernel):
+    """(wrapper, CPU args, keyword args) of one call of ``kernel``."""
+    if kernel == "gmm":
+        x = torch.ones(16, 8)
+        w = torch.ones(2, 8, 16)
+        gids = torch.tensor([0, 1], dtype=torch.int32)
+        return tmg.gmm, (x, w, gids), dict(bm=8, bk=8, bn=8)
+    a_r, b_c, b_r, ip, gust = _schedule_case()
+    panel = kernel == "stream_panel_spmm"
+    sched = tks.device_schedule(gust if panel else ip, "cpu")
+    return getattr(tks, kernel), \
+        (a_r.data, (b_r if panel else b_c).data, sched), \
+        dict(out_grid=(2, 2), out_shape=(16, 16))
+
+
+@pytest.mark.parametrize("kernel", ["stream_spmm", "stream_panel_spmm",
+                                    "gmm"])
 def test_failed_build_raises_instead_of_plain(kernel, monkeypatch, tmp_path):
     """A tensor off the CPU takes the kernel path; the build fails; the call
     raises, and no launch is counted."""
-    a_r, b_c, b_r, ip, gust = _schedule_case()
+    fn, args, kw = _kernel_case(kernel)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_LIBS", {})
     # a "compiler" that rejects nvcc's flags, so the build fails everywhere
     monkeypatch.setattr(build, "nvcc", lambda: sys.executable)
-    fn = getattr(tks, kernel)
-    b = b_r if kernel == "stream_panel_spmm" else b_c
-    sched = tks.device_schedule(
-        gust if kernel == "stream_panel_spmm" else ip, "cpu")
-    meta_a, meta_b = a_r.data.to("meta"), b.data.to("meta")
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+            for a in args]
     before = fn.launches
     with pytest.raises(RuntimeError, match="build failed"):
-        fn(meta_a, meta_b, sched, out_grid=(2, 2), out_shape=(16, 16))
+        fn(*meta, **kw)
     assert fn.launches == before
     # the same call on CPU tensors runs the plain version
-    out = fn(a_r.data, b.data, sched, out_grid=(2, 2), out_shape=(16, 16))
+    out = fn(*args, **kw)
     assert out.shape == (16, 16) and fn.launches == before
 
 
@@ -138,6 +152,7 @@ def _has_try(path):
 @pytest.mark.parametrize("module", ["kernels/stream.py", "kernels/build.py",
                                     "kernels/ip_spmm.py", "kernels/op_spmm.py",
                                     "kernels/gust_spmm.py",
+                                    "kernels/moe_gmm.py", "models/moe.py",
                                     "backends/cuda.py"])
 def test_kernel_path_has_no_fallback(module):
     assert not _has_try(PORT / module)
