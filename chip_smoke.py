@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    source, all at once) and print the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at blocks
    16, 32, 64 and 128 with ragged edges, a ``pad_schedule``-padded schedule
-   and an empty one;
+   and an empty one; then K1 on long runs (4 valid rows, block 128, ~36
+   entries a run), with its chunk table split and whole;
 3. the main path: all nine Table 6 layers at their published M, N, K and
    sparsities, block-structured at block 32, through
    ``flexagon_plan(..., backend="cuda")`` with each of the six dataflows
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    the densified inputs, and the least time the card could take;
 7. K3 (the MoE grouped matmul) against its plain version and an fp64
    product: bm 16, 64 and 128, bf16 and fp32 inputs, empty groups, groups
-   larger than one tile, and the idle tiles of the device padding;
+   larger than one tile, and the idle tiles of the device padding; then
+   granite's decode shapes, few-tile calls that take the K split, and rows
+   that are not 16-byte aligned;
 8. the serving path: granite-moe-1b-a400m at its published width (24
    layers, d_model 1024, 32 experts top-8, vocab 49155) with random bf16
    weights from a seed and the MoE dispatch set to ``sort``, serving 8
@@ -47,8 +50,15 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    ``torch._grouped_mm`` on the real rows, and its bound.
 
 Its last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.  With no CUDA device it exits 2 before
+``{"ok": true, "device": {...}}``; the whole log is also written to
+``chiprun_out/chip_smoke.log`` and the kernel summary to
+``chiprun_out/chip_smoke.json``.  With no CUDA device it exits 2 before
 printing any result.
+
+    python3 chip_smoke.py --sweeps
+
+runs phases 1, 7 and 2 alone (the build, then each kernel against its
+plain version: K3 first, then K1 and K2) and prints no result lines.
 """
 from __future__ import annotations
 
@@ -86,8 +96,14 @@ BF16_REL_TOL = 5e-3
 LOGIT_TOL = 0.08
 
 
+#: every log line also goes here once the run has a card and the repo
+_LOG = []
+
+
 def log(*parts) -> None:
     print(*parts, flush=True)
+    for f in _LOG:
+        print(*parts, file=f, flush=True)
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -105,15 +121,44 @@ def build_kernels():
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(logs)}; nvcc {build.FLAGS[1]})")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for kernel, info in _ptxas_usage(text):
+            log(f"ptxas {name} {kernel}: {info}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     log(card)
     return card
+
+
+def _ptxas_usage(text):
+    """(kernel, "registers ...; spills") per compiled entry of
+    ``nvcc -Xptxas -v`` output, kernel names demangled by ``c++filt``
+    where the toolkit has it."""
+    import re
+    import shutil
+
+    kernel, spill, out = None, "", []
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)'?", line)
+        used = re.search(r"Used \d+ registers.*", line)
+        if m:
+            kernel = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif used and kernel:
+            out.append([kernel, f"{used.group(0)}; {spill}"])
+            spill = ""
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(k for k, _ in out),
+            capture_output=True, text=True, timeout=30).stdout.splitlines()
+        if len(names) == len(out):
+            for row, name in zip(out, names):
+                row[0] = name.replace("(anonymous namespace)::",
+                                      "").split("(")[0]
+    return out
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -199,6 +244,63 @@ def kernel_sweep(device, blocks=(16, 32, 64, 128)):
                     raise SystemExit(f"{name} disagrees with its plain "
                                      f"version at block {blk} ({tag})")
                 worst[name] = max(worst[name], err)
+    worst["stream_spmm"] = max(worst["stream_spmm"],
+                               long_run_sweep(device, rng))
+    return worst
+
+
+def long_run_sweep(device, rng, blk=128, m=4, kb=40, nb=2):
+    """K1 on long runs: 4 valid rows of a 128-row block times a 40-block
+    depth, so each of the nb runs has about 36 entries.  The plan's own
+    chunking splits them (the second pass runs); the same schedule cut at
+    its longest run does not.  Both against the plain version and fp64,
+    and against each other."""
+    import torch
+
+    from repro_torch.core import dataflows as df
+    from repro_torch.core.formats import dense_to_bcsc, dense_to_bcsr
+    from repro_torch.kernels import stream as ks
+
+    k, n = kb * blk, nb * blk
+    a, b = _operands(rng, m, k, n, (blk, blk, blk), 1.0, 0.9, device)
+    bs = (blk, blk)
+    a_r, a_c = dense_to_bcsr(a, bs), dense_to_bcsc(a, bs)
+    b_r, b_c = dense_to_bcsr(b, bs), dense_to_bcsc(b, bs)
+    ref = a.double() @ b.double()
+    kw = dict(out_grid=(1, nb), out_shape=(m, n))
+    worst = 0.0
+    for label, x, y, sched in (
+            ("ip", a_r, b_c, ks.schedule_from_ip(df.build_ip_plan(a_r, b_c))),
+            ("op", a_c, b_r, ks.schedule_from_stream(
+                df.build_op_plan(a_c, b_r), by_dest=True))):
+        outs = {}
+        for tag, chunk in (("split", None), ("whole", sched.n_work)):
+            ds = ks.device_schedule(sched, device, chunk=chunk)
+            got = ks.stream_spmm(x.data, y.data, ds, **kw)
+            want = ks.stream_spmm_plain(x.data, y.data, ds, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = (torch.allclose(got, want, rtol=TOL, atol=TOL)
+                  and torch.allclose(got.double(), ref, rtol=TOL, atol=TOL))
+            runs = sched.n_work // max(sched.n_runs, 1)
+            log(f"sweep stream_spmm long runs {label} {tag:5s} M={m} "
+                f"block={blk} W={ds.n_work} runs={ds.n_seg} (~{runs} "
+                f"entries) chunk={ds.chunk} chunks={ds.n_chunk} "
+                f"split segments={ds.n_split} rows="
+                f"{ks.dest_rows(blk, m)} max|kernel-plain|={err:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"stream_spmm long runs {label} {tag} "
+                                 "disagrees with its plain version")
+            if (ds.n_split > 0) != (tag == "split"):
+                raise SystemExit(f"stream_spmm long runs {label} {tag}: "
+                                 f"{ds.n_split} split segments")
+            outs[tag] = got
+            worst = max(worst, err)
+        if not torch.allclose(outs["split"], outs["whole"], rtol=TOL,
+                              atol=TOL):
+            raise SystemExit(f"stream_spmm long runs {label}: split and "
+                             "whole runs disagree")
     return worst
 
 
@@ -395,9 +497,18 @@ def _bound_ms(call):
 
 
 def _device_ms(fn, reps=REPS):
-    """Device time per call: the kernels and memsets ``fn`` launches, as
-    the profiler records them; CUDA events around ``reps`` calls where it
-    records none."""
+    """Device time per call: the median over ``reps`` calls of the kernels
+    and memsets each call launches, as the profiler records them.  A
+    kernel counts for the call whose ``timed`` range holds it on the
+    device timeline.  The profiler now and then drops a call's events (a
+    mean over all events then reads low) or hands over events of an
+    earlier profile (it then reads high), so the median is taken over the
+    calls it saw; where it saw no more than half of them, the profile is
+    taken again, and after three such profiles CUDA events around the
+    ``reps`` calls give the mean instead (which includes the host's gaps
+    between launches)."""
+    import statistics
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -405,18 +516,25 @@ def _device_ms(fn, reps=REPS):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
-        for _ in range(reps):
-            with record_function("timed"):
-                fn()
-        torch.cuda.synchronize()
-    # device-side events only, and not the "timed" annotation itself,
-    # whose span on the device timeline includes the host's gaps
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and e.name != "timed")
-    if us > 0:
-        return us / 1e3 / reps, "profiler"
+    for _ in range(3):          # a profile that lost most calls is retaken
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                with record_function("timed"):
+                    fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        # the "timed" range's device twin spans its call's first to last
+        # kernel (with the host's gaps); the time is the kernels' own
+        windows = [e.time_range for e in device if e.name == "timed"]
+        kernels = [e for e in device if e.name != "timed"]
+        seen = [t for t in (sum(e.device_time_total for e in kernels
+                                if w.start <= e.time_range.start <= w.end)
+                            for w in windows) if t > 0]
+        if 2 * len(seen) > reps:
+            return statistics.median(seen) / 1e3, \
+                f"profiler, {len(seen)} of {reps} calls"
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -439,6 +557,7 @@ def time_main_path(calls, worst):
     cuda = get_backend("cuda")
     totals = {}
     seen = set()
+    fallbacks = []      # timings that fell back to CUDA events
     for label, plan, a, b, applied in calls:
         if "dense" in plan.aux:
             raise SystemExit(f"{label}/{plan.dataflow} took the dense escape")
@@ -463,8 +582,9 @@ def time_main_path(calls, worst):
         worst[name] = max(worst[name], err)
         xd, yd = call.x.todense().float(), call.y.todense().float()
         ms, how = _device_ms(call.run)
-        plain_ms, _ = _device_ms(lambda: call.run(plain))
-        lib_ms, _ = _device_ms(lambda: torch.matmul(xd, yd))
+        plain_ms, plain_how = _device_ms(lambda: call.run(plain))
+        lib_ms, lib_how = _device_ms(lambda: torch.matmul(xd, yd))
+        fallbacks += [h == "events" for h in (how, plain_how, lib_how)]
         t_bytes, t_ops = _bound_ms(call)
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
@@ -485,6 +605,8 @@ def time_main_path(calls, worst):
         t["bound_ms"] += bound
         t[by] += bound          # how much of the summed bound each side sets
         t["calls"] += 1
+    log(f"main-path timings on CUDA events (with the host's gaps): "
+        f"{sum(fallbacks)} of {len(fallbacks)}")
     return totals
 
 
@@ -525,54 +647,91 @@ def _gmm_check(label, got, want, ref64, scatter):
     return err, rel
 
 
-def gmm_sweep(device):
-    """K3 vs its plain version and fp64: bm 16/64/128, bf16 and fp32 in,
-    the group sizes of tests/test_kernels.py scaled to bm (empty groups,
-    groups of several tiles) plus a ragged case, on the device padding
-    (idle tiles after the real ones)."""
+def _gmm_case(device, rng, sizes, k, n, bm, dtypes, bk=8, bn=8,
+              want_splits=None):
+    """One K3 sweep case on the device padding: each input type of
+    ``dtypes`` with output in it and in fp32.  Returns the worst
+    max|kernel - plain|."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import moe_gmm as mg
 
+    rows = sum(sizes)
+    gids, scatter = mg.pad_groups_device(
+        torch.tensor(sizes, device=device), bm, rows)
+    real_tiles = sum(-(-s // bm) for s in sizes)
+    x = torch.as_tensor(rng.standard_normal((rows, k), np.float32),
+                        device=device)
+    w = torch.as_tensor(rng.standard_normal((len(sizes), k, n), np.float32),
+                        device=device)
+    worst = 0.0
+    for dt in dtypes:
+        xd, wd = x.to(dt), w.to(dt)
+        xp = torch.zeros((gids.numel() * bm, k), dtype=dt, device=device)
+        xp[scatter.long()] = xd
+        ref64 = _gmm_ref64(xd, wd, sizes)
+        plan = mg.launch_plan(xp.shape[0], k, n, bm, dt)
+        if want_splits is not None and dt == torch.bfloat16 \
+                and (plan.splits > 1) != want_splits:
+            raise SystemExit(f"moe_gmm sizes={sizes}: launch plan {plan}, "
+                             f"want a K split: {want_splits}")
+        for out_dt in sorted({dt, torch.float32}, key=str):
+            kw = dict(bm=bm, bk=bk, bn=bn, out_dtype=out_dt)
+            got = mg.gmm(xp, wd, gids, **kw)
+            want = mg.gmm_plain(xp, wd, gids, **kw)
+            torch.cuda.synchronize()
+            label = (f"bm={bm} K={k} N={n} sizes={sizes} in={dt} "
+                     f"out={out_dt}")
+            err, rel = _gmm_check(label, got, want, ref64, scatter)
+            if got[real_tiles * bm:].any():
+                raise SystemExit(f"moe_gmm {label}: an idle tile wrote "
+                                 "non-zero rows")
+            log(f"sweep moe_gmm {label} tiles={gids.numel():3d} (real "
+                f"{real_tiles:3d}) rows={plan.rows} grid={plan.grid} "
+                f"max|kernel-plain|={err:.3e} rel vs fp64 {rel:.1e} ok")
+            worst = max(worst, err)
+    return worst
+
+
+def gmm_sweep(device):
+    """K3 vs its plain version and fp64: bm 16/64/128, bf16 and fp32 in,
+    the group sizes of tests/test_kernels.py scaled to bm (empty groups,
+    groups of several tiles) plus a ragged case, on the device padding
+    (idle tiles after the real ones); then granite's decode shapes (32
+    rows over ~21 of 32 groups, no K split), calls with few tiles that
+    take the K split at bm 16 and 64, and rows that are not 16-byte
+    aligned (the element-wise load path)."""
+    import numpy as np
+    import torch
+
     rng = np.random.default_rng(SEED + 3)
-    k, n = 256, 200
+    both = (torch.bfloat16, torch.float32)
     worst = 0.0
     for bm in (16, 64, 128):
         cases = [[s * bm // 8 for s in sizes]
                  for sizes in ([8, 16, 0, 24], [0, 0, 8], [32])]
         cases.append([bm // 2 + 3, 0, 2 * bm + 1, 1])    # partial tiles
         for sizes in cases:
-            rows = sum(sizes)
-            gids, scatter = mg.pad_groups_device(
-                torch.tensor(sizes, device=device), bm, rows)
-            real_tiles = sum(-(-s // bm) for s in sizes)
-            x = torch.as_tensor(rng.standard_normal((rows, k), np.float32),
-                                device=device)
-            w = torch.as_tensor(
-                rng.standard_normal((len(sizes), k, n), np.float32),
-                device=device)
-            for dt in (torch.bfloat16, torch.float32):
-                xd, wd = x.to(dt), w.to(dt)
-                xp = torch.zeros((gids.numel() * bm, k), dtype=dt,
-                                 device=device)
-                xp[scatter.long()] = xd
-                ref64 = _gmm_ref64(xd, wd, sizes)
-                for out_dt in sorted({dt, torch.float32}, key=str):
-                    kw = dict(bm=bm, bk=8, bn=8, out_dtype=out_dt)
-                    got = mg.gmm(xp, wd, gids, **kw)
-                    want = mg.gmm_plain(xp, wd, gids, **kw)
-                    torch.cuda.synchronize()
-                    label = (f"bm={bm} sizes={sizes} in={dt} "
-                             f"out={out_dt}")
-                    err, rel = _gmm_check(label, got, want, ref64, scatter)
-                    if got[real_tiles * bm:].any():
-                        raise SystemExit(f"moe_gmm {label}: an idle tile "
-                                         "wrote non-zero rows")
-                    log(f"sweep moe_gmm {label:58s} tiles={gids.numel():3d} "
-                        f"(real {real_tiles:3d}) max|kernel-plain|="
-                        f"{err:.3e} rel vs fp64 {rel:.1e} ok")
-                    worst = max(worst, err)
+            worst = max(worst, _gmm_case(device, rng, sizes, 256, 200, bm,
+                                         both))
+    # decode: 4 slots x top-8 of 32 experts
+    sizes = np.zeros(32, int)
+    for _ in range(4):
+        sizes[rng.choice(32, size=8, replace=False)] += 1
+    sizes = sizes.tolist()
+    log(f"sweep moe_gmm decode routing: {sum(sizes)} rows over "
+        f"{sum(1 for s in sizes if s)} of 32 groups")
+    for k, n in ((1024, 512), (512, 1024)):
+        worst = max(worst, _gmm_case(device, rng, sizes, k, n, 16, both,
+                                     want_splits=False))
+    worst = max(worst, _gmm_case(device, rng, [9, 7], 1024, 512, 16, both,
+                                 want_splits=True))
+    worst = max(worst, _gmm_case(device, rng, [40, 70], 1024, 512, 64, both,
+                                 want_splits=True))
+    for bm in (16, 64):
+        worst = max(worst, _gmm_case(device, rng, [5, 20, 0, 3], 260, 100,
+                                     bm, both, bk=4, bn=4))
     return worst
 
 
@@ -748,7 +907,7 @@ def step_breakdown(engine):
     by_family, by_name = Counter(), Counter()
     for e in events:
         name = e.name.lower()
-        family = ("K3 gmm_kernel" if "gmm_kernel" in name
+        family = ("K3 gmm" if "gmm_" in name
                   else "matmul" if ("gemm" in name or "cutlass" in name
                                     or "sm90" in name)
                   else "copy/fill" if ("memcpy" in name or "memset" in name
@@ -780,6 +939,7 @@ def time_k3(calls, worst):
     t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if has_lib else None,
          "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0,
          "calls": len(calls)}
+    fallbacks = []      # timings that fell back to CUDA events
     for i, (phase, c) in enumerate(calls):
         x, w, gids, kw = c["x"], c["w"], c["gids"], c["kw"]
         sizes = c["sizes"].tolist()
@@ -793,9 +953,11 @@ def time_k3(calls, worst):
         err, rel = _gmm_check(f"{phase} call {i}", got, want,
                               _gmm_ref64(x_real, w, sizes), scatter)
         worst = max(worst, err)
-        ms, _ = _device_ms(functools.partial(mg.gmm, x, w, gids, **kw))
-        plain_ms, _ = _device_ms(
+        ms, how = _device_ms(functools.partial(mg.gmm, x, w, gids, **kw))
+        fallbacks.append(how == "events")
+        plain_ms, plain_how = _device_ms(
             functools.partial(mg.gmm_plain, x, w, gids, **kw))
+        fallbacks.append(plain_how == "events")
         lib = ""
         if has_lib:
             lib_fn = functools.partial(
@@ -803,7 +965,8 @@ def time_k3(calls, worst):
                 offs=torch.cumsum(c["sizes"], 0).to(torch.int32))
             lib_err = float((lib_fn().float() - got[scatter].float())
                             .abs().max())
-            lib_ms, _ = _device_ms(lib_fn)
+            lib_ms, lib_how = _device_ms(lib_fn)
+            fallbacks.append(lib_how == "events")
             t["library_ms"] += lib_ms
             lib = f" library_ms={lib_ms:.4f} max|library-kernel|={lib_err:.2e}"
         # bytes: the real x rows, the slabs of groups with rows, the real
@@ -818,15 +981,18 @@ def time_k3(calls, worst):
         by = "bytes" if t_bytes >= t_ops else "operations"
         log(f"time moe_gmm {phase:7s} call {i:3d} rows={r:4d} "
             f"tiles={gids.numel():3d} groups={active:2d} K={k} N={n} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.5f} "
-            f"({by}) max|kernel-plain|={err:.2e} rel vs fp64 {rel:.1e}"
+            f"ms={ms:.4f} ({how}) plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound:.5f} ({by}) max|kernel-plain|={err:.2e} "
+            f"rel vs fp64 {rel:.1e}"
             + lib)
         t["ms"] += ms
         t["plain_ms"] += plain_ms
         t["bound_ms"] += bound
         t[by] += bound
-    log(f"K3 times sum over {len(calls)} calls ({REPS} calls each after 3 "
-        "warm-up calls): one granite prefill and one 4-slot decode step")
+    log(f"K3 times sum over {len(calls)} calls (each the median of {REPS} "
+        "calls after 3 warm-up calls): one granite prefill and one 4-slot "
+        f"decode step; timings on CUDA events (with the host's gaps): "
+        f"{sum(fallbacks)} of {len(fallbacks)}")
     return t, worst
 
 
@@ -852,6 +1018,9 @@ def main() -> int:
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import stream as ks
 
+    OUT_DIR.mkdir(exist_ok=True)
+    _LOG.append(open(OUT_DIR / "chip_smoke.log", "w"))
+
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
@@ -859,6 +1028,14 @@ def main() -> int:
     t_start = time.perf_counter()
 
     card = build_kernels()
+    if "--sweeps" in sys.argv[1:]:
+        # phases 1, 7 and 2 alone: the kernels against their plain
+        # versions, K3 first; no main path, no result lines
+        gmm_sweep(device)
+        kernel_sweep(device)
+        log(f"sweeps done in {time.perf_counter() - t_start:.1f} s on "
+            f"{card}")
+        return 0
     worst = kernel_sweep(device)
 
     calls = []
@@ -877,7 +1054,8 @@ def main() -> int:
     replay_ffn(ffn_runs, calls)
     totals = time_main_path(calls, worst)
     log(f"times above sum over the {sum(t['calls'] for t in totals.values())}"
-        f" distinct kernel calls of one main-path pass, on {card}; "
+        f" distinct kernel calls of one main-path pass (each the median of "
+        f"{REPS} calls), on {card}; "
         f"bound = sum over calls of max(bytes at {HBM_BYTES_PER_S:g} B/s, "
         f"fp32 operations at {FP32_FLOP_PER_S:g}/s), bound_by = the side "
         "that sets most of it; library = torch.matmul on the densified "
@@ -923,7 +1101,6 @@ def main() -> int:
         f"{HBM_BYTES_PER_S:g} B/s, bf16 operations at {BF16_FLOP_PER_S:g}/s)"
         f"; library = torch._grouped_mm on the real rows; on {card}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
-    OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

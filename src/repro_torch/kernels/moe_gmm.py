@@ -9,6 +9,8 @@ row tile multiplies only its group's weight slab.
   A CPU tensor runs :func:`gmm_plain`; a CUDA tensor launches the kernel of
   ``csrc/moe_gmm.cu`` (built by ``build.py`` at first use) or raises.
   ``gmm.launches`` counts kernel launches and nothing else.
+- :func:`launch_plan` — the host's choice of the kernel's block rows and
+  K split for one call's shapes.
 - :func:`pad_groups` — the host padding of ``repro.kernels.moe_gmm``,
   byte-equal to it.
 - :func:`pad_groups_device` — the same padding as tensors on the device,
@@ -20,18 +22,30 @@ row tile multiplies only its group's weight slab.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from . import build
 
-__all__ = ["IDLE", "gmm", "gmm_plain", "pad_groups", "pad_groups_device",
-           "tile_bound"]
+__all__ = ["IDLE", "GmmLaunch", "gmm", "gmm_plain", "launch_plan",
+           "pad_groups", "pad_groups_device", "tile_bound"]
 
 #: group id of an idle row tile (past the real tiles of the device padding)
 IDLE = -1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the kernel's fixed tiling (``csrc/moe_gmm.cu``): output columns per
+#: block and the depth of one pipeline slice of the bf16 kernel
+BLOCK_N = 64
+SLICE_K = 64
+#: blocks a launch should give the card's 132 SMs before K is left whole
+TARGET_BLOCKS = 2 * 132
+#: least depth one K split keeps: four pipeline slices
+MIN_SPLIT_K = 4 * SLICE_K
+#: CUDA's limit on a grid's y and z extents
+_MAX_GRID_YZ = 65535
 
 
 def _check_shapes(x, w, group_ids, bm, bk, bn):
@@ -74,11 +88,50 @@ def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor, *,
 # -- kernel launch -----------------------------------------------------------
 
 
+class GmmLaunch(NamedTuple):
+    """How one K3 call is cut into CUDA blocks."""
+
+    rows: int        # block row extent: 16 (bm <= 16) or 64
+    row_blocks: int  # row tiles x row sub-tiles of ``rows``
+    col_blocks: int  # BLOCK_N-column blocks
+    splits: int      # K splits; > 1 adds the fixed-order reduction pass
+    k_len: int       # depth of each split, a multiple of SLICE_K
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """The CUDA grid of the main kernel."""
+        return (self.row_blocks, self.col_blocks, self.splits)
+
+
+def launch_plan(m: int, k: int, n: int, bm: int,
+                dtype=torch.bfloat16) -> GmmLaunch:
+    """The block rows and K split of one call, from its shapes alone.
+
+    16-row blocks for ``bm <= 16`` (the sort path's decode and prefill),
+    64-row sub-tiles otherwise.  bf16 calls whose row tiles x column blocks
+    come to fewer than :data:`TARGET_BLOCKS` split K into pieces of at least
+    :data:`MIN_SPLIT_K`, so a call with few tiles still fills the card.  The
+    host does not know how many tiles are idle (that would need a sync), so
+    it counts them all.  fp32 calls run on the CUDA cores with no split.
+    """
+    rows = 16 if bm <= 16 else 64
+    row_blocks = (m // bm) * -(-bm // rows)
+    cols = -(-n // BLOCK_N)
+    blocks = row_blocks * cols
+    splits = 1
+    if dtype == torch.bfloat16 and 0 < blocks < TARGET_BLOCKS:
+        want = -(-TARGET_BLOCKS // blocks)
+        splits = max(1, min(want, k // MIN_SPLIT_K))
+    k_len = max(SLICE_K, -(-(-(-k // splits)) // SLICE_K) * SLICE_K)
+    splits = max(1, -(-k // k_len))
+    return GmmLaunch(rows, row_blocks, cols, splits, k_len)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("moe_gmm")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flexagon_gmm.argtypes = [p, p, p] + [i] * 7 + [p, p]
+        lib.flexagon_gmm.argtypes = [p, p, p] + [i] * 10 + [p, p, p]
         lib.flexagon_gmm.restype = i
         lib.flexagon_gmm_error_string.argtypes = [i]
         lib.flexagon_gmm_error_string.restype = ctypes.c_char_p
@@ -135,12 +188,20 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor, *,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = launch_plan(m, k, n, bm, x.dtype)
+    if plan.col_blocks > _MAX_GRID_YZ:
+        raise ValueError(f"gmm: N = {n} gives {plan.col_blocks} column "
+                         f"blocks, over the grid's {_MAX_GRID_YZ}")
+    part = (torch.empty((plan.splits, m, n), dtype=torch.float32,
+                        device=x.device) if plan.splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.flexagon_gmm(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
         ctypes.c_void_p(group_ids.data_ptr()), m, k, n, g, bm,
-        _DTYPES[x.dtype], _DTYPES[out_dtype], ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(stream))
+        _DTYPES[x.dtype], _DTYPES[out_dtype], plan.rows, plan.splits,
+        plan.k_len, ctypes.c_void_p(part.data_ptr() if part is not None
+                                    else None),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err:
         msg = lib.flexagon_gmm_error_string(err).decode()
         raise RuntimeError(f"gmm: kernel launch failed: CUDA error {err} "

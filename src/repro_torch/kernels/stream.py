@@ -19,9 +19,10 @@ exactly two kernels:
 The host half (:class:`StreamSchedule`, :func:`schedule_from_ip`,
 :func:`schedule_from_stream`, :func:`pad_schedule`) is numpy and builds
 arrays byte-equal to ``repro.kernels.stream``.  :func:`device_schedule`
-uploads what the kernels read — the work list plus one segment table of
-run starts and destinations derived from ``is_first`` — to a device once
-per plan.
+uploads what the kernels read — the work list, one segment table of run
+starts and destinations derived from ``is_first``, and K1's chunk table
+(:func:`chunk_table`), which cuts long segments into chunks so that a plan
+with few runs still fills the card — to a device once per plan.
 
 Each wrapper dispatches on the device of its operands alone: a tensor on
 the CPU runs the plain PyTorch version in this module
@@ -50,6 +51,9 @@ __all__ = [
     "schedule_from_stream",
     "pad_schedule",
     "device_schedule",
+    "chunk_size",
+    "chunk_table",
+    "dest_rows",
     "stream_spmm",
     "stream_spmm_plain",
     "stream_panel_spmm",
@@ -253,6 +257,62 @@ def pad_schedule(s: StreamSchedule, w_total: int, r_total: int,
 # ---------------------------------------------------------------------------
 
 
+#: K1's chunking: the work list is cut into about this many chunks (two
+#: per SM of the H100), and no chunk of a split segment is shorter than
+#: MIN_CHUNK entries
+TARGET_CHUNKS = 2 * 132
+MIN_CHUNK = 4
+
+
+def chunk_size(n_work: int) -> int:
+    """Most entries of one K1 chunk for a work list of ``n_work`` entries:
+    about ``n_work / TARGET_CHUNKS``, at least :data:`MIN_CHUNK`.  Plans
+    with many short runs then split nothing; plans with few long runs
+    split each into pieces of the same size."""
+    return max(MIN_CHUNK, -(-n_work // TARGET_CHUNKS))
+
+
+def chunk_table(seg_start: np.ndarray, chunk: int):
+    """Cut each segment's entries into chunks of at most ``chunk`` entries.
+
+    ``seg_start`` is the (S+1,) segment offset table.  Returns int32 arrays
+    ``(chunk_start, chunk_seg, chunk_slot, split_seg, split_start)``:
+
+    - ``chunk_start`` (C+1,): chunk offsets in the work list; chunks cover
+      it in order, each inside one segment, last == W;
+    - ``chunk_seg`` (C,): the segment of each chunk;
+    - ``chunk_slot`` (C,): the workspace slot of a chunk of a segment cut
+      into several, numbered in chunk order; -1 for a segment of one chunk,
+      which K1 writes straight into C;
+    - ``split_seg`` (P,): the segments cut into several chunks, in order;
+    - ``split_start`` (P+1,): each one's first slot; their chunks' slots
+      run from there to the next, in chunk order.
+    """
+    seg_start = np.asarray(seg_start, np.int64)
+    lengths = np.diff(seg_start)
+    pieces = np.maximum(1, -(-lengths // chunk))          # chunks per segment
+    chunk_seg = np.repeat(np.arange(lengths.size), pieces)
+    first = np.cumsum(pieces) - pieces                    # segment's 1st chunk
+    nth = np.arange(chunk_seg.size) - first[chunk_seg]
+    chunk_start = np.append(seg_start[:-1][chunk_seg] + nth * chunk,
+                            seg_start[-1])
+    split = pieces > 1
+    in_split = split[chunk_seg]
+    chunk_slot = np.full(chunk_seg.size, -1, np.int64)
+    chunk_slot[in_split] = np.arange(int(in_split.sum()))
+    split_seg = np.flatnonzero(split)
+    split_start = np.append(0, np.cumsum(pieces[split]))
+    return tuple(np.ascontiguousarray(x, np.int32) for x in
+                 (chunk_start, chunk_seg, chunk_slot, split_seg, split_start))
+
+
+def dest_rows(bm: int, m: int) -> int:
+    """K1's sub-tile rows: the least of 16, 32 and 64 that covers a block's
+    valid rows, ``min(bm, m)`` (64 above that, in several sub-tiles)."""
+    valid = min(bm, m)
+    return 16 if valid <= 16 else 32 if valid <= 32 else 64
+
+
 @dataclasses.dataclass
 class DeviceSchedule:
     """What the kernels read, on one device.  Built once per plan.
@@ -260,7 +320,8 @@ class DeviceSchedule:
     A *segment* is one run as the work list lays it out: the entries from
     one ``is_first`` to the next.  Real runs are one segment each; every
     pad entry of :func:`pad_schedule` is a segment of its own whose
-    destination row is out of bounds.
+    destination row is out of bounds.  K1 reads the segments through the
+    chunk table of :func:`chunk_table`; K2 reads them whole.
     """
 
     a_slot: torch.Tensor      # (W,) int32
@@ -274,6 +335,14 @@ class DeviceSchedule:
     max_a_slot: int
     max_b_slot: int
     max_cj: int
+    # K1's chunk table (see chunk_table), cut at ``chunk`` entries
+    chunk_start: torch.Tensor   # (C+1,) int32
+    chunk_seg: torch.Tensor     # (C,) int32
+    chunk_slot: torch.Tensor    # (C,) int32 — workspace slot or -1
+    split_seg: torch.Tensor     # (P,) int32
+    split_start: torch.Tensor   # (P+1,) int32
+    chunk: int
+    n_slots: int                # workspace slots == split_start[-1]
 
     @property
     def n_work(self) -> int:
@@ -284,12 +353,24 @@ class DeviceSchedule:
         return int(self.seg_ci.shape[0])
 
     @property
+    def n_chunk(self) -> int:
+        return int(self.chunk_seg.shape[0])
+
+    @property
+    def n_split(self) -> int:
+        """Segments cut into several chunks (K1's second pass sums them)."""
+        return int(self.split_seg.shape[0])
+
+    @property
     def device(self) -> torch.device:
         return self.a_slot.device
 
 
-def device_schedule(s: StreamSchedule, device) -> DeviceSchedule:
-    """Derive the segment table from ``is_first`` and upload it once."""
+def device_schedule(s: StreamSchedule, device, *,
+                    chunk: int = None) -> DeviceSchedule:
+    """Derive the segment and chunk tables from ``is_first`` and upload
+    them once.  ``chunk`` (default :func:`chunk_size` of the work list)
+    is the most entries of one K1 chunk."""
     is_first = np.asarray(s.is_first)
     w = int(is_first.size)
     if w and is_first[0] != 1:
@@ -299,6 +380,10 @@ def device_schedule(s: StreamSchedule, device) -> DeviceSchedule:
     seg_ci = np.asarray(s.run_ci, np.int32)[rid]
     seg_cj = np.asarray(s.run_cj, np.int32)[rid]
     cj = np.asarray(s.cj, np.int32)
+    seg_start = np.append(starts, w)
+    chunk = chunk_size(w) if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
 
     def up(x):
         return torch.as_tensor(np.ascontiguousarray(x, np.int32),
@@ -311,11 +396,13 @@ def device_schedule(s: StreamSchedule, device) -> DeviceSchedule:
     b_slot = np.asarray(s.b_slot, np.int32)
     if w and min(int(a_slot.min()), int(b_slot.min())) < 0:
         raise ValueError("malformed schedule: negative block slot")
+    chunks = chunk_table(seg_start, chunk)
     return DeviceSchedule(
         up(a_slot), up(b_slot), up(cj),
-        up(np.append(starts, w)), up(seg_ci), up(seg_cj), s.kind,
+        up(seg_start), up(seg_ci), up(seg_cj), s.kind,
         top(a_slot), top(b_slot),
-        top(cj) if s.kind == "panel" else top(seg_cj))
+        top(cj) if s.kind == "panel" else top(seg_cj),
+        *(up(x) for x in chunks), chunk, int(chunks[4][-1]))
 
 
 def _psums(a_data, b_data, ds: DeviceSchedule):
@@ -382,7 +469,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("stream_spmm")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flexagon_stream_spmm.argtypes = [p] * 7 + [i] * 5 + [p, i, i, p]
+        lib.flexagon_stream_spmm.argtypes = \
+            [p] * 12 + [i] * 3 + [i] * 4 + [p, i, i, p]
         lib.flexagon_stream_spmm.restype = i
         lib.flexagon_stream_panel_spmm.argtypes = \
             [p] * 7 + [i] * 6 + [p, i, i, p]
@@ -429,7 +517,8 @@ def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape):
 def _launch(entry: str, a_data, b_data, ds: DeviceSchedule, out_grid,
             out_shape, out_dtype, pointers, dims) -> torch.Tensor:
     """Check, zero C, and launch one C entry of ``csrc/stream_spmm.cu``
-    over ``pointers`` (the work list's arrays) and the ints ``dims``.
+    over ``pointers`` (the schedule's arrays, and K1's workspace) and the
+    ints ``dims``.
 
     The caller counts the launch."""
     lib = _lib()
@@ -439,9 +528,10 @@ def _launch(entry: str, a_data, b_data, ds: DeviceSchedule, out_grid,
                     device=a_data.device)
     bm, bk, bn = a_data.shape[1], a_data.shape[2], b_data.shape[2]
     stream = torch.cuda.current_stream(a_data.device).cuda_stream
+    ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr())
+            for t in (a_data, b_data, *pointers)]
     err = getattr(lib, entry)(
-        *[ctypes.c_void_p(t.data_ptr()) for t in (a_data, b_data, *pointers)],
-        ds.n_seg, *dims, bm, bk, bn, out_grid[0],
+        *ptrs, *dims, bm, bk, bn, out_grid[0],
         ctypes.c_void_p(c.data_ptr()), out_shape[0], out_shape[1],
         ctypes.c_void_p(stream))
     if err:
@@ -461,7 +551,9 @@ def stream_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
     (``(nnzb, bm, bk)`` / ``(nnzb, bk, bn)``); ``ds`` is the
     :class:`DeviceSchedule` on the operands' device.  Returns the dense
     ``out_shape`` product.  An empty schedule returns zeros and launches
-    nothing.
+    nothing.  On the card, the chunks of split segments write partial
+    tiles to a workspace that the kernel's second pass sums in chunk
+    order; both passes are one launch.
     """
     if a_data.device.type == "cpu":
         out = stream_spmm_plain(a_data, b_data, ds, out_grid=out_grid,
@@ -470,10 +562,15 @@ def stream_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
     if ds.n_work == 0:
         return torch.zeros(tuple(out_shape), dtype=out_dtype,
                            device=a_data.device)
+    bm, bn = a_data.shape[1], b_data.shape[2]
+    part = (torch.empty((ds.n_slots, bm, bn), dtype=torch.float32,
+                        device=a_data.device) if ds.n_split else None)
     out = _launch("flexagon_stream_spmm", a_data, b_data, ds, out_grid,
                   out_shape, out_dtype,
-                  (ds.a_slot, ds.b_slot, ds.seg_start, ds.seg_ci, ds.seg_cj),
-                  ())
+                  (ds.a_slot, ds.b_slot, ds.chunk_start, ds.chunk_seg,
+                   ds.chunk_slot, ds.seg_ci, ds.seg_cj, ds.split_seg,
+                   ds.split_start, part),
+                  (ds.n_chunk, ds.n_split, dest_rows(bm, out_shape[0])))
     stream_spmm.launches += 1
     return out
 
@@ -500,7 +597,7 @@ def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
     out = _launch("flexagon_stream_panel_spmm", a_data, b_data, ds, out_grid,
                   out_shape, out_dtype,
                   (ds.a_slot, ds.b_slot, ds.cj, ds.seg_start, ds.seg_ci),
-                  (out_grid[1],))
+                  (ds.n_seg, out_grid[1]))
     stream_panel_spmm.launches += 1
     return out
 

@@ -177,3 +177,32 @@ def test_verify_is_accepted():
 def test_registry_has_both_backends():
     assert repro_torch.available_backends() == ("cuda", "reference")
     assert get_backend("cuda").dense_threshold == 0.5
+
+
+@pytest.mark.parametrize("dataflow", ["ip_m", "op_m", "ip_n", "op_n"])
+def test_apply_with_split_runs_makes_no_upload(dataflow, monkeypatch):
+    """A plan whose long runs K1 cuts into chunks: the chunk table is built
+    and uploaded once, at plan time, and ``apply`` copies nothing."""
+    a, b = _case(seed=5, m=16, k=8 * 16, n=16, da=1.0, db=1.0)
+    # escape off: the kernel path, not the dense product
+    monkeypatch.setattr(get_backend("cuda"), "dense_threshold", 2.0)
+    plan = flexagon_plan(a, b, dataflow=dataflow, block_shape=BS,
+                         backend="cuda", device="cpu")
+    assert "dense" not in plan.aux
+    ds = plan.aux["device_schedule"]
+    assert ds.n_split > 0 and ds.n_chunk > ds.n_seg
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    before = dict(PHASE1_COUNTERS)
+    uploads = []
+    real_as_tensor = torch.as_tensor
+
+    def counting_as_tensor(x, *args, **kwargs):
+        if isinstance(x, np.ndarray):
+            uploads.append(x.shape)
+        return real_as_tensor(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "as_tensor", counting_as_tensor)
+    for _ in range(2):
+        np.testing.assert_allclose(plan.apply(ta, tb).numpy(), a @ b, **TOL)
+    assert PHASE1_COUNTERS == before
+    assert uploads == [], "apply copied host arrays to the device"

@@ -117,3 +117,93 @@ def test_gmm_rejects_shapes_outside_the_contract(bad):
         kw["bk"] = 3
     with pytest.raises(ValueError):
         tg.gmm(x, w, gids, **kw)
+
+
+# -- the host's launch plan for the kernel ------------------------------------
+
+# granite-moe-1b-a400m's sort path (bm 16, d_model 1024, d_ff 512, 32
+# experts top-8): decode of 4 slots (32 routed rows) and a 128-token
+# prefill (1024 routed rows), each at the static tile bound
+DECODE = tg.tile_bound(32, 32, 16) * 16
+PREFILL = tg.tile_bound(1024, 32, 16) * 16
+
+
+@pytest.mark.parametrize("m,k,n,grid", [
+    (DECODE, 1024, 512, (34, 8, 1)),      # gate / up
+    (DECODE, 512, 1024, (34, 16, 1)),     # down
+    (PREFILL, 1024, 512, (96, 8, 1)),
+    (PREFILL, 512, 1024, (96, 16, 1)),
+], ids=["decode-gate", "decode-down", "prefill-gate", "prefill-down"])
+def test_launch_plan_serving_shapes(m, k, n, grid):
+    """Serving calls fill the card with 16-row blocks and no K split."""
+    plan = tg.launch_plan(m, k, n, 16)
+    assert plan.rows == 16 and plan.grid == grid
+    assert plan.k_len == k
+    assert plan.row_blocks * plan.col_blocks >= tg.TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("bm", [16, 64, 128])
+@pytest.mark.parametrize("tiles,k,n", [(4, 1024, 512), (3, 512, 1024),
+                                       (40, 1024, 512), (2, 260, 100),
+                                       (1, 64, 8)])
+def test_launch_plan_rows_and_split(bm, tiles, k, n):
+    """Rows follow bm; a few-tile bf16 call splits K into pieces of whole
+    slices, at least MIN_SPLIT_K deep, that cover K once; fp32 never
+    splits."""
+    m = tiles * bm
+    plan = tg.launch_plan(m, k, n, bm)
+    rows = 16 if bm <= 16 else 64
+    assert plan.rows == rows
+    assert plan.row_blocks == tiles * -(-bm // rows)
+    assert plan.col_blocks == -(-n // tg.BLOCK_N)
+    blocks = plan.row_blocks * plan.col_blocks
+    assert plan.k_len % tg.SLICE_K == 0
+    assert (plan.splits - 1) * plan.k_len < k <= plan.splits * plan.k_len
+    if plan.splits > 1:
+        assert blocks < tg.TARGET_BLOCKS
+        assert plan.k_len >= tg.MIN_SPLIT_K
+    elif blocks < tg.TARGET_BLOCKS:
+        assert k < 2 * tg.MIN_SPLIT_K          # too shallow to split
+    fp32 = tg.launch_plan(m, k, n, bm, torch.float32)
+    assert fp32.splits == 1 and fp32.rows == rows
+
+
+def test_launch_plan_splits_a_few_tile_call():
+    plan = tg.launch_plan(tg.tile_bound(16, 2, 16) * 16, 1024, 512, 16)
+    assert plan.grid == (3, 8, 4) and plan.k_len == 256
+    plan = tg.launch_plan(tg.tile_bound(110, 2, 64) * 64, 1024, 512, 64)
+    assert plan.grid == (4, 8, 4) and plan.k_len == 256
+
+
+@pytest.mark.parametrize("bm", [16, 64])
+def test_k_split_partials_sum_to_the_plain_version(bm):
+    """The kernel's K split emulated on the CPU: each split's fp32 partial
+    plane over its k range, summed in split order, then rounded once,
+    equals ``gmm_plain`` (fp32 to 1e-4, bf16 within one bf16 ulp)."""
+    sizes = [9, 7] if bm == 16 else [40, 70]
+    rng = np.random.default_rng(11)
+    k, n = 1024, 64
+    x = rng.standard_normal((sum(sizes), k)).astype(np.float32)
+    w = rng.standard_normal((len(sizes), k, n)).astype(np.float32)
+    gids, scatter = tg.pad_groups_device(torch.tensor(sizes), bm, sum(sizes))
+    xp = torch.zeros((gids.numel() * bm, k))
+    xp[scatter.long()] = torch.as_tensor(x)
+    xb = xp.to(torch.bfloat16)
+    wb = torch.as_tensor(w).to(torch.bfloat16)
+    plan = tg.launch_plan(xb.shape[0], k, n, bm)
+    assert plan.splits > 1
+    planes = []
+    for z in range(plan.splits):
+        lo, hi = z * plan.k_len, min(k, (z + 1) * plan.k_len)
+        planes.append(tg.gmm_plain(xb[:, lo:hi].contiguous(),
+                                   wb[:, lo:hi].contiguous(), gids, bm=bm,
+                                   bk=hi - lo, bn=n, out_dtype=torch.float32))
+    total = planes[0]
+    for p in planes[1:]:
+        total = total + p
+    want = tg.gmm_plain(xb, wb, gids, bm=bm, bk=k, bn=n,
+                        out_dtype=torch.float32)
+    torch.testing.assert_close(total, want, rtol=1e-4, atol=1e-4)
+    wantb = tg.gmm_plain(xb, wb, gids, bm=bm, bk=k, bn=n)
+    torch.testing.assert_close(total.to(torch.bfloat16).float(),
+                               wantb.float(), rtol=2 ** -7, atol=1e-4)

@@ -152,3 +152,144 @@ def test_malformed_schedule_rejected():
     ts.is_first[0] = 0
     with pytest.raises(ValueError, match="does not start a run"):
         tks.device_schedule(ts, "cpu")
+
+
+# -- K1's chunk table and second pass -----------------------------------------
+
+
+def _variant_schedules(family, block, variant):
+    a, b = _case(block, seed=block + 20)
+    ja, jb, ta, tb, js, ts = _schedules(family, a, b, block)
+    if variant == "padded":
+        oob = ja.grid[0]
+        js = jks.pad_schedule(js, js.n_work + 5, js.n_runs + 3, oob)
+        ts = tks.pad_schedule(ts, ts.n_work + 5, ts.n_runs + 3, oob)
+    elif variant == "empty":
+        js, ts = jks._empty_schedule(js.kind), tks._empty_schedule(ts.kind)
+    return a, b, ja, jb, ta, tb, js, ts
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3, None])
+@pytest.mark.parametrize("variant", ["plain", "padded", "empty"])
+@pytest.mark.parametrize("family", ["ip", "op", "gust"])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_chunk_table_partitions_every_segment(block, family, variant, chunk):
+    """Chunks cover the work list once, in order, each inside one segment
+    and at most ``chunk`` long; a segment of several chunks owns
+    consecutive workspace slots in chunk order, one of one chunk none."""
+    *_, ts = _variant_schedules(family, block, variant)
+    ds = tks.device_schedule(ts, "cpu", chunk=chunk)
+    size = tks.chunk_size(ts.n_work) if chunk is None else chunk
+    assert ds.chunk == size
+    seg_start = ds.seg_start.numpy()
+    start = ds.chunk_start.numpy()
+    seg = ds.chunk_seg.numpy()
+    slot = ds.chunk_slot.numpy()
+    split_seg, split_start = ds.split_seg.numpy(), ds.split_start.numpy()
+    assert start[0] == 0 and start[-1] == ts.n_work
+    assert (np.diff(start) >= 1).all() and (np.diff(start) <= size).all()
+    assert (np.diff(seg) >= 0).all()
+    # each chunk lies inside its segment, and the chunks of a segment
+    # tile exactly its entries
+    assert (start[:-1] >= seg_start[seg]).all()
+    assert (start[1:] <= seg_start[seg + 1]).all()
+    covered = np.zeros(ts.n_work, int)
+    for lo, hi in zip(start[:-1], start[1:]):
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert sorted(set(seg.tolist())) == list(range(ds.n_seg))
+    pieces = np.bincount(seg, minlength=ds.n_seg)
+    np.testing.assert_array_equal(split_seg, np.flatnonzero(pieces > 1))
+    assert ds.n_split == split_seg.size
+    assert ds.n_slots == split_start[-1] == int((slot >= 0).sum())
+    np.testing.assert_array_equal(slot[slot >= 0],
+                                  np.arange(ds.n_slots))
+    for p, s in enumerate(split_seg):
+        np.testing.assert_array_equal(
+            slot[seg == s], np.arange(split_start[p], split_start[p + 1]))
+    assert (slot[pieces[seg] == 1] == -1).all()
+
+
+def _two_pass(a_data, b_data, ds, out_grid, out_shape):
+    """K1's two passes in plain numpy: each chunk sums its entries in
+    order; a segment of one chunk is its sum, a split one its chunks'
+    workspace slots summed in chunk order; pad runs dropped."""
+    a, b = a_data.numpy(), b_data.numpy()
+    mb, nb = out_grid
+    bm, bn = a.shape[1], b.shape[2]
+    c = np.zeros((mb * bm, nb * bn), np.float32)
+    start, seg = ds.chunk_start.numpy(), ds.chunk_seg.numpy()
+    slot = ds.chunk_slot.numpy()
+    a_slot, b_slot = ds.a_slot.numpy(), ds.b_slot.numpy()
+    work = np.zeros((max(ds.n_slots, 1), bm, bn), np.float32)
+    direct = {}
+    for ch in range(ds.n_chunk):
+        acc = np.zeros((bm, bn), np.float32)
+        for w in range(start[ch], start[ch + 1]):
+            acc += a[a_slot[w]] @ b[b_slot[w]]
+        if slot[ch] < 0:
+            direct[seg[ch]] = acc
+        else:
+            work[slot[ch]] = acc
+    tiles = dict(direct)
+    split_start = ds.split_start.numpy()
+    for p, s in enumerate(ds.split_seg.numpy()):
+        acc = np.zeros((bm, bn), np.float32)
+        for q in range(split_start[p], split_start[p + 1]):
+            acc += work[q]
+        tiles[s] = acc
+    ci, cj = ds.seg_ci.numpy(), ds.seg_cj.numpy()
+    for s, tile in tiles.items():
+        if 0 <= ci[s] < mb:
+            c[ci[s] * bm:(ci[s] + 1) * bm, cj[s] * bn:(cj[s] + 1) * bn] = tile
+    return c[: out_shape[0], : out_shape[1]]
+
+
+@pytest.mark.parametrize("chunk", [1, 2, None])
+@pytest.mark.parametrize("variant", ["plain", "padded", "empty"])
+@pytest.mark.parametrize("family", ["ip", "op"])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_two_pass_emulation_matches_plain_and_pallas(block, family, variant,
+                                                      chunk):
+    """Chunk partials summed in chunk order equal ``stream_spmm_plain``
+    and the Pallas kernel in interpret mode to 1e-5."""
+    a, b, ja, jb, ta, tb, js, ts = _variant_schedules(family, block, variant)
+    ds = tks.device_schedule(ts, "cpu", chunk=chunk)
+    if variant != "empty" and chunk == 1:
+        assert ds.n_split > 0         # the second pass has work
+    grid = (ja.grid[0], jb.grid[1])
+    shape = (ja.shape[0], jb.shape[1])
+    got = _two_pass(ta.data, tb.data, ds, grid, shape)
+    plain = tks.stream_spmm_plain(ta.data, tb.data, ds, out_grid=grid,
+                                  out_shape=shape)
+    want = np.asarray(jks.stream_spmm(ja.data, jb.data, js, out_grid=grid,
+                                      out_shape=shape, interpret=True))
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bm,m,rows", [(8, 100, 16), (16, 4, 16),
+                                       (128, 4, 16), (128, 20, 32),
+                                       (32, 500, 32), (128, 128, 64),
+                                       (64, 33, 64), (128, 1000, 64)])
+def test_dest_rows_cover_the_valid_rows(bm, m, rows):
+    assert tks.dest_rows(bm, m) == rows
+    assert rows >= min(bm, m, 64)
+
+
+def test_chunk_size_follows_the_work_list():
+    assert tks.chunk_size(0) == tks.MIN_CHUNK
+    # the 4-token FFN down projection: 12 runs of 35 entries -> 9 chunks each
+    assert tks.chunk_size(12 * 35) == 4
+    seg_start = np.arange(13) * 35
+    _, seg, slot, split_seg, split_start = tks.chunk_table(seg_start, 4)
+    assert seg.size == 12 * 9 and split_seg.size == 12
+    assert split_start[-1] == 108 and (slot >= 0).all()
+    # many short runs split nothing
+    w = 3000
+    assert tks.chunk_size(w) == -(-w // tks.TARGET_CHUNKS)
+    _, _, slot, split_seg, _ = tks.chunk_table(np.arange(1001) * 3,
+                                               tks.chunk_size(w))
+    assert split_seg.size == 0 and (slot == -1).all()
+    with pytest.raises(ValueError, match="chunk"):
+        tks.device_schedule(tks._empty_schedule(), "cpu", chunk=0)
