@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    source, all at once) and print the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at blocks
    16, 32, 64 and 128 with ragged edges, a ``pad_schedule``-padded schedule
-   and an empty one; then K1 on long runs (4 valid rows, block 128, ~36
-   entries a run), with its chunk table split and whole;
+   and an empty one; then K1 on long runs and K2 on long columns (4 valid
+   rows, block 128, ~36 entries a run or a column), with their chunk
+   tables split and whole;
 3. the main path: all nine Table 6 layers at their published M, N, K and
    sparsities, block-structured at block 32, through
    ``flexagon_plan(..., backend="cuda")`` with each of the six dataflows
@@ -244,17 +245,19 @@ def kernel_sweep(device, blocks=(16, 32, 64, 128)):
                     raise SystemExit(f"{name} disagrees with its plain "
                                      f"version at block {blk} ({tag})")
                 worst[name] = max(worst[name], err)
-    worst["stream_spmm"] = max(worst["stream_spmm"],
-                               long_run_sweep(device, rng))
+    for name, err in long_run_sweep(device, rng).items():
+        worst[name] = max(worst[name], err)
     return worst
 
 
 def long_run_sweep(device, rng, blk=128, m=4, kb=40, nb=2):
-    """K1 on long runs: 4 valid rows of a 128-row block times a 40-block
-    depth, so each of the nb runs has about 36 entries.  The plan's own
-    chunking splits them (the second pass runs); the same schedule cut at
-    its longest run does not.  Both against the plain version and fp64,
-    and against each other."""
+    """K1 on long runs and K2 on long columns: 4 valid rows of a 128-row
+    block times a 40-block depth, so each of K1's nb runs, and each of the
+    nb column segments of K2's one run, has about 36 entries.  The plan's
+    own chunking splits them (the second pass runs); the same schedule cut
+    at its longest run does not.  Both against the plain version and fp64,
+    and against each other.  Returns each kernel's worst
+    max|kernel - plain|."""
     import torch
 
     from repro_torch.core import dataflows as df
@@ -268,39 +271,45 @@ def long_run_sweep(device, rng, blk=128, m=4, kb=40, nb=2):
     b_r, b_c = dense_to_bcsr(b, bs), dense_to_bcsc(b, bs)
     ref = a.double() @ b.double()
     kw = dict(out_grid=(1, nb), out_shape=(m, n))
-    worst = 0.0
-    for label, x, y, sched in (
-            ("ip", a_r, b_c, ks.schedule_from_ip(df.build_ip_plan(a_r, b_c))),
-            ("op", a_c, b_r, ks.schedule_from_stream(
-                df.build_op_plan(a_c, b_r), by_dest=True))):
+    worst = {"stream_spmm": 0.0, "stream_panel_spmm": 0.0}
+    for name, label, x, y, sched in (
+            ("stream_spmm", "ip", a_r, b_c,
+             ks.schedule_from_ip(df.build_ip_plan(a_r, b_c))),
+            ("stream_spmm", "op", a_c, b_r, ks.schedule_from_stream(
+                df.build_op_plan(a_c, b_r), by_dest=True)),
+            ("stream_panel_spmm", "gust", a_r, b_r, ks.schedule_from_stream(
+                df.build_gust_plan(a_r, b_r), by_dest=False))):
+        kernel = getattr(ks, name)
+        plain = getattr(ks, name + "_plain")
+        what = "long columns" if name == "stream_panel_spmm" else "long runs"
         outs = {}
         for tag, chunk in (("split", None), ("whole", sched.n_work)):
             ds = ks.device_schedule(sched, device, chunk=chunk)
-            got = ks.stream_spmm(x.data, y.data, ds, **kw)
-            want = ks.stream_spmm_plain(x.data, y.data, ds, **kw)
+            got = kernel(x.data, y.data, ds, **kw)
+            want = plain(x.data, y.data, ds, **kw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             ok = (torch.allclose(got, want, rtol=TOL, atol=TOL)
                   and torch.allclose(got.double(), ref, rtol=TOL, atol=TOL))
-            runs = sched.n_work // max(sched.n_runs, 1)
-            log(f"sweep stream_spmm long runs {label} {tag:5s} M={m} "
-                f"block={blk} W={ds.n_work} runs={ds.n_seg} (~{runs} "
-                f"entries) chunk={ds.chunk} chunks={ds.n_chunk} "
-                f"split segments={ds.n_split} rows="
-                f"{ks.dest_rows(blk, m)} max|kernel-plain|={err:.3e} "
+            walk = ds.cols or ds    # K2's column segments, K1's runs
+            log(f"sweep {name} {what} {label} {tag:5s} M={m} block={blk} "
+                f"W={ds.n_work} runs={ds.n_seg} segments={walk.n_seg} (~"
+                f"{ds.n_work // max(walk.n_seg, 1)} entries) chunk={ds.chunk} "
+                f"chunks={walk.n_chunk} split segments={walk.n_split} "
+                f"rows={ks.dest_rows(blk, m)} max|kernel-plain|={err:.3e} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"stream_spmm long runs {label} {tag} "
-                                 "disagrees with its plain version")
-            if (ds.n_split > 0) != (tag == "split"):
-                raise SystemExit(f"stream_spmm long runs {label} {tag}: "
-                                 f"{ds.n_split} split segments")
+                raise SystemExit(f"{name} {what} {label} {tag} disagrees "
+                                 "with its plain version")
+            if (walk.n_split > 0) != (tag == "split"):
+                raise SystemExit(f"{name} {what} {label} {tag}: "
+                                 f"{walk.n_split} split segments")
             outs[tag] = got
-            worst = max(worst, err)
+            worst[name] = max(worst[name], err)
         if not torch.allclose(outs["split"], outs["whole"], rtol=TOL,
                               atol=TOL):
-            raise SystemExit(f"stream_spmm long runs {label}: split and "
-                             "whole runs disagree")
+            raise SystemExit(f"{name} {what} {label}: split and whole "
+                             "runs disagree")
     return worst
 
 
@@ -590,8 +599,12 @@ def time_main_path(calls, worst):
         by = "bytes" if t_bytes >= t_ops else "operations"
         blk = "x".join(map(str, (*call.x.data.shape[1:],
                                  call.y.data.shape[2])))
+        ds = call.schedule
+        walk = ds.cols or ds        # K2's column segments, K1's runs
         log(f"time {name:17s} {label:9s} {plan.dataflow:6s} "
-            f"W={call.schedule.n_work:6d} block={blk} ms={ms:.4f} ({how}) "
+            f"W={ds.n_work:6d} tiles={walk.n_seg:5d} "
+            f"chunks={walk.n_chunk:5d} "
+            f"block={blk} ms={ms:.4f} ({how}) "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={bound:.5f} ({by}; bytes {t_bytes:.5f}, "
             f"operations {t_ops:.5f}) max|kernel-plain|={err:.2e}")

@@ -22,7 +22,10 @@ arrays byte-equal to ``repro.kernels.stream``.  :func:`device_schedule`
 uploads what the kernels read — the work list, one segment table of run
 starts and destinations derived from ``is_first``, and K1's chunk table
 (:func:`chunk_table`), which cuts long segments into chunks so that a plan
-with few runs still fills the card — to a device once per plan.
+with few runs still fills the card — to a device once per plan.  A panel
+schedule also gets K2's :class:`ColumnTable` (:func:`column_table`): each
+run's entries regrouped by destination column block, so that K2 walks one
+output tile's entries destination-major, as K1 does, with its own chunks.
 
 Each wrapper dispatches on the device of its operands alone: a tensor on
 the CPU runs the plain PyTorch version in this module
@@ -47,12 +50,14 @@ __all__ = [
     "SCHEDULE_KINDS",
     "StreamSchedule",
     "DeviceSchedule",
+    "ColumnTable",
     "schedule_from_ip",
     "schedule_from_stream",
     "pad_schedule",
     "device_schedule",
     "chunk_size",
     "chunk_table",
+    "column_table",
     "dest_rows",
     "stream_spmm",
     "stream_spmm_plain",
@@ -257,15 +262,15 @@ def pad_schedule(s: StreamSchedule, w_total: int, r_total: int,
 # ---------------------------------------------------------------------------
 
 
-#: K1's chunking: the work list is cut into about this many chunks (two
-#: per SM of the H100), and no chunk of a split segment is shorter than
-#: MIN_CHUNK entries
+#: K1's and K2's chunking: the work list is cut into about this many
+#: chunks (two per SM of the H100), and no chunk of a split segment is
+#: shorter than MIN_CHUNK entries
 TARGET_CHUNKS = 2 * 132
 MIN_CHUNK = 4
 
 
 def chunk_size(n_work: int) -> int:
-    """Most entries of one K1 chunk for a work list of ``n_work`` entries:
+    """Most entries of one chunk for a work list of ``n_work`` entries:
     about ``n_work / TARGET_CHUNKS``, at least :data:`MIN_CHUNK`.  Plans
     with many short runs then split nothing; plans with few long runs
     split each into pieces of the same size."""
@@ -283,7 +288,7 @@ def chunk_table(seg_start: np.ndarray, chunk: int):
     - ``chunk_seg`` (C,): the segment of each chunk;
     - ``chunk_slot`` (C,): the workspace slot of a chunk of a segment cut
       into several, numbered in chunk order; -1 for a segment of one chunk,
-      which K1 writes straight into C;
+      which the kernel writes straight into C;
     - ``split_seg`` (P,): the segments cut into several chunks, in order;
     - ``split_start`` (P+1,): each one's first slot; their chunks' slots
       run from there to the next, in chunk order.
@@ -306,11 +311,80 @@ def chunk_table(seg_start: np.ndarray, chunk: int):
                  (chunk_start, chunk_seg, chunk_slot, split_seg, split_start))
 
 
+def column_table(seg_start: np.ndarray, seg_ci: np.ndarray, cj: np.ndarray,
+                 real: np.ndarray):
+    """Regroup a panel schedule's entries by destination tile (K2).
+
+    ``seg_start`` (S+1,) and ``seg_ci`` (S,) are the segment table, ``cj``
+    (W,) each entry's destination column block, ``real`` (S,) bool the
+    segments that write C (pad runs do not).  Returns int32 arrays
+    ``(order, col_start, col_ci, col_cj)``:
+
+    - ``order`` (V,): the real segments' entries, sorted stably by
+      (segment, ``cj``), so that within one column block they keep their
+      work-list order, the order in which the TPU kernel adds them;
+    - ``col_start`` (G+1,): the *column segments*, the maximal stretches of
+      ``order`` with one (segment, ``cj``), last == V;
+    - ``col_ci``, ``col_cj`` (G,): each column segment's output tile.
+    """
+    seg_start = np.asarray(seg_start, np.int64)
+    seg_of = np.repeat(np.arange(seg_start.size - 1), np.diff(seg_start))
+    cj = np.asarray(cj, np.int64)
+    mine = np.flatnonzero(np.asarray(real, bool)[seg_of])
+    order = mine[np.lexsort((cj[mine], seg_of[mine]))]   # lexsort is stable
+    seg, col = seg_of[order], cj[order]
+    new = np.ones(order.size, bool)
+    new[1:] = (seg[1:] != seg[:-1]) | (col[1:] != col[:-1])
+    first = np.flatnonzero(new)
+    return tuple(np.ascontiguousarray(x, np.int32) for x in
+                 (order, np.append(first, order.size),
+                  np.asarray(seg_ci)[seg[first]], col[first]))
+
+
 def dest_rows(bm: int, m: int) -> int:
-    """K1's sub-tile rows: the least of 16, 32 and 64 that covers a block's
-    valid rows, ``min(bm, m)`` (64 above that, in several sub-tiles)."""
+    """Sub-tile rows of K1 and K2: the least of 16, 32 and 64 that covers a
+    block's valid rows, ``min(bm, m)`` (64 above that, in several
+    sub-tiles)."""
     valid = min(bm, m)
     return 16 if valid <= 16 else 32 if valid <= 32 else 64
+
+
+@dataclasses.dataclass
+class ColumnTable:
+    """K2's walk of a panel schedule, on one device (:func:`column_table`).
+
+    One column segment holds the entries that sum into one output tile
+    ``(col_ci, col_cj)``, in work-list order (``order`` is
+    :func:`column_table`'s).  Pad runs have none, and a
+    tile that no entry touches has none: it stays zero.  The chunk table
+    cuts the column segments as :func:`chunk_table` cuts K1's segments.
+    """
+
+    a_slot: torch.Tensor        # (V,) int32 — the schedule's a_slot[order]
+    b_slot: torch.Tensor        # (V,) int32 — the schedule's b_slot[order]
+    col_start: torch.Tensor     # (G+1,) int32 — column segment offsets
+    col_ci: torch.Tensor        # (G,) int32 — destination block row
+    col_cj: torch.Tensor        # (G,) int32 — destination block column
+    # chunk table over the column segments (see chunk_table)
+    chunk_start: torch.Tensor   # (C+1,) int32
+    chunk_seg: torch.Tensor     # (C,) int32 — the chunk's column segment
+    chunk_slot: torch.Tensor    # (C,) int32 — workspace slot or -1
+    split_seg: torch.Tensor     # (P,) int32
+    split_start: torch.Tensor   # (P+1,) int32
+    n_slots: int                # workspace slots == split_start[-1]
+
+    @property
+    def n_seg(self) -> int:
+        """Column segments: output tiles that some entry touches."""
+        return int(self.col_ci.shape[0])
+
+    @property
+    def n_chunk(self) -> int:
+        return int(self.chunk_seg.shape[0])
+
+    @property
+    def n_split(self) -> int:
+        return int(self.split_seg.shape[0])
 
 
 @dataclasses.dataclass
@@ -321,7 +395,8 @@ class DeviceSchedule:
     one ``is_first`` to the next.  Real runs are one segment each; every
     pad entry of :func:`pad_schedule` is a segment of its own whose
     destination row is out of bounds.  K1 reads the segments through the
-    chunk table of :func:`chunk_table`; K2 reads them whole.
+    chunk table of :func:`chunk_table`; K2 reads a panel schedule through
+    its :class:`ColumnTable` (``cols``), cut at the same ``chunk``.
     """
 
     a_slot: torch.Tensor      # (W,) int32
@@ -343,6 +418,7 @@ class DeviceSchedule:
     split_start: torch.Tensor   # (P+1,) int32
     chunk: int
     n_slots: int                # workspace slots == split_start[-1]
+    cols: ColumnTable = None    # K2's table; None for a "dest" schedule
 
     @property
     def n_work(self) -> int:
@@ -368,9 +444,10 @@ class DeviceSchedule:
 
 def device_schedule(s: StreamSchedule, device, *,
                     chunk: int = None) -> DeviceSchedule:
-    """Derive the segment and chunk tables from ``is_first`` and upload
-    them once.  ``chunk`` (default :func:`chunk_size` of the work list)
-    is the most entries of one K1 chunk."""
+    """Derive the segment and chunk tables from ``is_first`` (and, for a
+    panel schedule, K2's column table) and upload them once.  ``chunk``
+    (default :func:`chunk_size` of the work list) is the most entries of
+    one chunk, in both kernels."""
     is_first = np.asarray(s.is_first)
     w = int(is_first.size)
     if w and is_first[0] != 1:
@@ -397,12 +474,27 @@ def device_schedule(s: StreamSchedule, device, *,
     if w and min(int(a_slot.min()), int(b_slot.min())) < 0:
         raise ValueError("malformed schedule: negative block slot")
     chunks = chunk_table(seg_start, chunk)
+    cols = None
+    if s.kind == "panel":
+        # pad runs aim at the schedule's out-of-bounds row (one past the
+        # output grid): K2's table leaves them out, as the JAX scatter
+        # drops them
+        real = seg_ci >= 0
+        if s.oob_row >= 0:
+            real &= seg_ci < s.oob_row
+        order, col_start, col_ci, col_cj = column_table(seg_start, seg_ci,
+                                                        cj, real)
+        col_chunks = chunk_table(col_start, chunk)
+        cols = ColumnTable(up(a_slot[order]), up(b_slot[order]),
+                           up(col_start), up(col_ci), up(col_cj),
+                           *(up(x) for x in col_chunks),
+                           int(col_chunks[4][-1]))
     return DeviceSchedule(
         up(a_slot), up(b_slot), up(cj),
         up(seg_start), up(seg_ci), up(seg_cj), s.kind,
         top(a_slot), top(b_slot),
         top(cj) if s.kind == "panel" else top(seg_cj),
-        *(up(x) for x in chunks), chunk, int(chunks[4][-1]))
+        *(up(x) for x in chunks), chunk, int(chunks[4][-1]), cols)
 
 
 def _psums(a_data, b_data, ds: DeviceSchedule):
@@ -469,19 +561,14 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("stream_spmm")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flexagon_stream_spmm.argtypes = \
-            [p] * 12 + [i] * 3 + [i] * 4 + [p, i, i, p]
-        lib.flexagon_stream_spmm.restype = i
-        lib.flexagon_stream_panel_spmm.argtypes = \
-            [p] * 7 + [i] * 6 + [p, i, i, p]
-        lib.flexagon_stream_panel_spmm.restype = i
+        # K1 and K2 take the same arguments: a walk and its chunk table
+        for fn in (lib.flexagon_stream_spmm, lib.flexagon_stream_panel_spmm):
+            fn.argtypes = [p] * 12 + [i] * 3 + [i] * 4 + [p, i, i, p]
+            fn.restype = i
         lib.flexagon_cuda_error_string.argtypes = [i]
         lib.flexagon_cuda_error_string.restype = ctypes.c_char_p
         lib._bound = True
     return lib
-
-
-_MAX_GRID_YZ = 65535
 
 
 def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape):
@@ -510,15 +597,13 @@ def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape):
     if m > mb * bm or n > nb * bn or ds.max_cj >= nb:
         raise ValueError(f"{name}: output {out_shape} / grid {out_grid} "
                          f"disagree with the blocks or the schedule")
-    if nb > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: {nb} column blocks exceed the grid limit")
 
 
 def _launch(entry: str, a_data, b_data, ds: DeviceSchedule, out_grid,
             out_shape, out_dtype, pointers, dims) -> torch.Tensor:
     """Check, zero C, and launch one C entry of ``csrc/stream_spmm.cu``
-    over ``pointers`` (the schedule's arrays, and K1's workspace) and the
-    ints ``dims``.
+    over ``pointers`` (the walk's arrays and its workspace) and the ints
+    ``dims``.
 
     The caller counts the launch."""
     lib = _lib()
@@ -584,20 +669,34 @@ def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
                       out_dtype=torch.float32) -> torch.Tensor:
     """Run a row-major schedule through the row-panel kernel (K2).
 
-    Arguments as :func:`stream_spmm`.  Each run is one output block row;
-    the kernel tiles its ``(bm, Nb*bn)`` panel by column blocks.
+    Arguments as :func:`stream_spmm`; ``ds`` is a panel schedule.  Each
+    run is one output block row.  On the card K2 walks the schedule's
+    :class:`ColumnTable`: one CUDA block per chunk of a column segment and
+    sub-tile of its ``(bm, bn)`` tile, the chunks of split column segments
+    summed in chunk order by a second pass of the same launch.  Tiles that
+    no entry touches stay zero; a schedule with no real entry launches
+    nothing.
     """
     if a_data.device.type == "cpu":
         out = stream_panel_spmm_plain(a_data, b_data, ds, out_grid=out_grid,
                                       out_shape=out_shape)
         return out.to(out_dtype)
-    if ds.n_work == 0:
+    cols = ds.cols
+    if cols is None:
+        raise ValueError(f"stream_panel_spmm: a {ds.kind!r} schedule has no "
+                         "column table; K2 takes panel schedules")
+    if cols.n_chunk == 0:
         return torch.zeros(tuple(out_shape), dtype=out_dtype,
                            device=a_data.device)
+    bm, bn = a_data.shape[1], b_data.shape[2]
+    part = (torch.empty((cols.n_slots, bm, bn), dtype=torch.float32,
+                        device=a_data.device) if cols.n_split else None)
     out = _launch("flexagon_stream_panel_spmm", a_data, b_data, ds, out_grid,
                   out_shape, out_dtype,
-                  (ds.a_slot, ds.b_slot, ds.cj, ds.seg_start, ds.seg_ci),
-                  (ds.n_seg, out_grid[1]))
+                  (cols.a_slot, cols.b_slot, cols.chunk_start,
+                   cols.chunk_seg, cols.chunk_slot, cols.col_ci, cols.col_cj,
+                   cols.split_seg, cols.split_start, part),
+                  (cols.n_chunk, cols.n_split, dest_rows(bm, out_shape[0])))
     stream_panel_spmm.launches += 1
     return out
 

@@ -206,3 +206,33 @@ def test_apply_with_split_runs_makes_no_upload(dataflow, monkeypatch):
         np.testing.assert_allclose(plan.apply(ta, tb).numpy(), a @ b, **TOL)
     assert PHASE1_COUNTERS == before
     assert uploads == [], "apply copied host arrays to the device"
+
+
+@pytest.mark.parametrize("dataflow", ["gust_m", "gust_n"])
+def test_panel_apply_with_split_columns_makes_no_upload(dataflow,
+                                                        monkeypatch):
+    """A Gustavson plan whose long per-column chains K2 cuts into chunks:
+    the column table and its chunk table are built and uploaded once, at
+    plan time, and ``apply`` copies nothing."""
+    a, b = _case(seed=6, m=16, k=8 * 16, n=16, da=1.0, db=1.0)
+    monkeypatch.setattr(get_backend("cuda"), "dense_threshold", 2.0)
+    plan = flexagon_plan(a, b, dataflow=dataflow, block_shape=BS,
+                         backend="cuda", device="cpu")
+    assert "dense" not in plan.aux
+    cols = plan.aux["device_schedule"].cols
+    assert cols.n_split > 0 and cols.n_chunk > cols.n_seg == 4
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    before = dict(PHASE1_COUNTERS)
+    uploads = []
+    real_as_tensor = torch.as_tensor
+
+    def counting_as_tensor(x, *args, **kwargs):
+        if isinstance(x, np.ndarray):
+            uploads.append(x.shape)
+        return real_as_tensor(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "as_tensor", counting_as_tensor)
+    for _ in range(2):
+        np.testing.assert_allclose(plan.apply(ta, tb).numpy(), a @ b, **TOL)
+    assert PHASE1_COUNTERS == before
+    assert uploads == [], "apply copied host arrays to the device"

@@ -144,6 +144,20 @@ def test_failed_build_raises_instead_of_plain(kernel, monkeypatch, tmp_path):
     assert out.shape == (16, 16) and fn.launches == before
 
 
+def test_panel_kernel_refuses_a_dest_schedule(monkeypatch):
+    """K2 on the card walks a panel schedule's column table; a destination
+    -major schedule has none, and the call raises before any build."""
+    a_r, b_c, b_r, ip, _ = _schedule_case()
+    sched = tks.device_schedule(ip, "cpu")
+    assert sched.cols is None
+    monkeypatch.setattr(build, "library", lambda name: pytest.fail("built"))
+    before = tks.stream_panel_spmm.launches
+    with pytest.raises(ValueError, match="column table"):
+        tks.stream_panel_spmm(a_r.data.to("meta"), b_r.data.to("meta"),
+                              sched, out_grid=(2, 2), out_shape=(16, 16))
+    assert tks.stream_panel_spmm.launches == before
+
+
 def _has_try(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     return any(isinstance(n, ast.Try) for n in ast.walk(tree))

@@ -210,20 +210,21 @@ def test_chunk_table_partitions_every_segment(block, family, variant, chunk):
     assert (slot[pieces[seg] == 1] == -1).all()
 
 
-def _two_pass(a_data, b_data, ds, out_grid, out_shape):
-    """K1's two passes in plain numpy: each chunk sums its entries in
-    order; a segment of one chunk is its sum, a split one its chunks'
-    workspace slots summed in chunk order; pad runs dropped."""
+def _walk_two_pass(a_data, b_data, walk, n_slots, out_grid, out_shape):
+    """A kernel's two passes in plain numpy over one walk, the tensors
+    ``(a_slot, b_slot, chunk_start, chunk_seg, chunk_slot, split_seg,
+    split_start, seg_ci, seg_cj)``: each chunk sums its entries in order; a
+    segment of one chunk is its sum, a split one its chunks' workspace
+    slots summed in chunk order; pad runs dropped."""
     a, b = a_data.numpy(), b_data.numpy()
+    (a_slot, b_slot, start, seg, slot, split_seg, split_start, ci,
+     cj) = (t.numpy() for t in walk)
     mb, nb = out_grid
     bm, bn = a.shape[1], b.shape[2]
     c = np.zeros((mb * bm, nb * bn), np.float32)
-    start, seg = ds.chunk_start.numpy(), ds.chunk_seg.numpy()
-    slot = ds.chunk_slot.numpy()
-    a_slot, b_slot = ds.a_slot.numpy(), ds.b_slot.numpy()
-    work = np.zeros((max(ds.n_slots, 1), bm, bn), np.float32)
+    work = np.zeros((max(n_slots, 1), bm, bn), np.float32)
     direct = {}
-    for ch in range(ds.n_chunk):
+    for ch in range(seg.size):
         acc = np.zeros((bm, bn), np.float32)
         for w in range(start[ch], start[ch + 1]):
             acc += a[a_slot[w]] @ b[b_slot[w]]
@@ -232,17 +233,24 @@ def _two_pass(a_data, b_data, ds, out_grid, out_shape):
         else:
             work[slot[ch]] = acc
     tiles = dict(direct)
-    split_start = ds.split_start.numpy()
-    for p, s in enumerate(ds.split_seg.numpy()):
+    for p, s in enumerate(split_seg):
         acc = np.zeros((bm, bn), np.float32)
         for q in range(split_start[p], split_start[p + 1]):
             acc += work[q]
         tiles[s] = acc
-    ci, cj = ds.seg_ci.numpy(), ds.seg_cj.numpy()
     for s, tile in tiles.items():
         if 0 <= ci[s] < mb:
             c[ci[s] * bm:(ci[s] + 1) * bm, cj[s] * bn:(cj[s] + 1) * bn] = tile
     return c[: out_shape[0], : out_shape[1]]
+
+
+def _two_pass(a_data, b_data, ds, out_grid, out_shape):
+    """K1's two passes over the schedule's own segments."""
+    return _walk_two_pass(
+        a_data, b_data,
+        (ds.a_slot, ds.b_slot, ds.chunk_start, ds.chunk_seg, ds.chunk_slot,
+         ds.split_seg, ds.split_start, ds.seg_ci, ds.seg_cj),
+        ds.n_slots, out_grid, out_shape)
 
 
 @pytest.mark.parametrize("chunk", [1, 2, None])
@@ -293,3 +301,128 @@ def test_chunk_size_follows_the_work_list():
     assert split_seg.size == 0 and (slot == -1).all()
     with pytest.raises(ValueError, match="chunk"):
         tks.device_schedule(tks._empty_schedule(), "cpu", chunk=0)
+
+
+# -- K2's column table and its two passes -------------------------------------
+
+
+@pytest.mark.parametrize("chunk", [1, 2, None])
+@pytest.mark.parametrize("variant", ["plain", "padded", "empty"])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_column_table_partitions_every_run(block, variant, chunk):
+    """Each real run's entries land in its column segments exactly once, in
+    work-list order within a segment; pad runs have none; one column
+    segment per touched tile; the chunk table cuts the column segments as
+    K1's cuts its segments."""
+    a, b, ja, jb, ta, tb, js, ts = _variant_schedules("gust", block, variant)
+    ds = tks.device_schedule(ts, "cpu", chunk=chunk)
+    cols = ds.cols
+    size = tks.chunk_size(ts.n_work) if chunk is None else chunk
+    assert ds.chunk == size
+    mb = ja.grid[0]
+    seg_start, seg_ci = ds.seg_start.numpy(), ds.seg_ci.numpy()
+    seg_of = np.repeat(np.arange(ds.n_seg), np.diff(seg_start))
+    real = np.flatnonzero((seg_ci[seg_of] >= 0) & (seg_ci[seg_of] < mb))
+    assert real.size == ts.n_real_work           # pads are the tail
+    cj = ds.cj.numpy()
+    keep = (seg_ci >= 0) & (seg_ci < mb)
+    order, col_start, col_ci, col_cj = tks.column_table(seg_start, seg_ci,
+                                                        cj, keep)
+    np.testing.assert_array_equal(cols.col_start.numpy(), col_start)
+    np.testing.assert_array_equal(cols.col_ci.numpy(), col_ci)
+    np.testing.assert_array_equal(cols.col_cj.numpy(), col_cj)
+    np.testing.assert_array_equal(np.sort(order), real)
+    np.testing.assert_array_equal(cols.a_slot.numpy(),
+                                  ds.a_slot.numpy()[order])
+    np.testing.assert_array_equal(cols.b_slot.numpy(),
+                                  ds.b_slot.numpy()[order])
+    assert col_start[0] == 0 and col_start[-1] == order.size
+    assert (np.diff(col_start) >= 1).all()
+    tiles = set()
+    for g, (lo, hi) in enumerate(zip(col_start[:-1], col_start[1:])):
+        entries = order[lo:hi]
+        assert (np.diff(entries) > 0).all()      # work-list order
+        assert (seg_of[entries] == seg_of[entries[0]]).all()
+        assert (cj[entries] == col_cj[g]).all()
+        assert col_ci[g] == seg_ci[seg_of[entries[0]]]
+        assert 0 <= col_ci[g] < mb
+        tiles.add((int(col_ci[g]), int(col_cj[g])))
+    assert len(tiles) == cols.n_seg              # one segment per tile
+    start, seg = cols.chunk_start.numpy(), cols.chunk_seg.numpy()
+    slot = cols.chunk_slot.numpy()
+    assert start[0] == 0 and start[-1] == order.size
+    assert (np.diff(start) >= 1).all() and (np.diff(start) <= size).all()
+    assert (start[:-1] >= col_start[seg]).all()
+    assert (start[1:] <= col_start[seg + 1]).all()
+    assert sorted(set(seg.tolist())) == list(range(cols.n_seg))
+    pieces = np.bincount(seg, minlength=cols.n_seg)
+    np.testing.assert_array_equal(cols.split_seg.numpy(),
+                                  np.flatnonzero(pieces > 1))
+    split_start = cols.split_start.numpy()
+    assert cols.n_slots == split_start[-1] == int((slot >= 0).sum())
+    for p, s in enumerate(cols.split_seg.numpy()):
+        np.testing.assert_array_equal(
+            slot[seg == s], np.arange(split_start[p], split_start[p + 1]))
+    assert (slot[pieces[seg] == 1] == -1).all()
+
+
+def _panel_two_pass(a_data, b_data, ds, out_grid, out_shape):
+    """K2's two passes over the column table."""
+    c = ds.cols
+    return _walk_two_pass(
+        a_data, b_data,
+        (c.a_slot, c.b_slot, c.chunk_start, c.chunk_seg, c.chunk_slot,
+         c.split_seg, c.split_start, c.col_ci, c.col_cj),
+        c.n_slots, out_grid, out_shape)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, None])
+@pytest.mark.parametrize("variant", ["plain", "padded", "empty"])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_panel_two_pass_emulation_matches_plain_and_pallas(block, variant,
+                                                           chunk):
+    """K2's walk of the column table, chunk partials summed in chunk
+    order, equals ``stream_panel_spmm_plain`` and the Pallas kernel in
+    interpret mode to 1e-5."""
+    a, b, ja, jb, ta, tb, js, ts = _variant_schedules("gust", block, variant)
+    ds = tks.device_schedule(ts, "cpu", chunk=chunk)
+    if variant != "empty" and chunk == 1:
+        assert ds.cols.n_split > 0    # the second pass has work
+    grid = (ja.grid[0], jb.grid[1])
+    shape = (ja.shape[0], jb.shape[1])
+    got = _panel_two_pass(ta.data, tb.data, ds, grid, shape)
+    plain = tks.stream_panel_spmm_plain(ta.data, tb.data, ds, out_grid=grid,
+                                        out_shape=shape)
+    want = np.asarray(jks.stream_panel_spmm(ja.data, jb.data, js,
+                                            out_grid=grid, out_shape=shape,
+                                            interpret=True))
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_column_table_long_columns():
+    """Few runs with long per-column chains (the shape of ``chip_smoke.py``'s
+    K2 long-column sweep, at block 8): the default chunking splits each
+    column segment; a chunk as long as the work list splits none."""
+    rng = np.random.default_rng(7)
+    m, k, n, blk = 4, 40 * 8, 2 * 8, 8
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    ta = tfm.dense_to_bcsr(a, (blk, blk), device="cpu")
+    tb = tfm.dense_to_bcsr(b, (blk, blk), device="cpu")
+    ts = tks.schedule_from_stream(tdf.build_gust_plan(ta, tb), by_dest=False)
+    assert ts.n_runs == 1 and ts.n_work == 80
+    kw = dict(out_grid=(1, 2), out_shape=(m, n))
+    for chunk, split in ((None, True), (ts.n_work, False)):
+        ds = tks.device_schedule(ts, "cpu", chunk=chunk)
+        assert ds.cols.n_seg == 2 and (ds.cols.n_split == 2) == split
+        assert ds.cols.n_chunk == (2 * 40 // tks.MIN_CHUNK if split else 2)
+        got = _panel_two_pass(ta.data, tb.data, ds, **kw)
+        np.testing.assert_allclose(got, a @ b, rtol=1e-4, atol=1e-4)
+
+
+def test_dest_schedule_has_no_column_table():
+    a, b = _case(8, seed=4)
+    for family in ("ip", "op"):
+        *_, ts = _schedules(family, a, b, 8)
+        assert tks.device_schedule(ts, "cpu").cols is None
