@@ -50,6 +50,29 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    fp64 product of its real rows, and timed beside the plain version,
    ``torch._grouped_mm`` on the real rows, and its bound.
 
+After phase 9, three phases drive what the memory and policy layers add
+(each counts K1/K2 launches from 0 and fails if a kernel it needs never
+launched; each turns the dense escape off and restores it):
+
+10. tiled plans under ``PAPER_BUDGET`` (Table 5: 256 KiB L1, 1 MiB L2),
+    run tile by tile through K1/K2: the six Table 6 layers that tile at
+    block 32 (R4, R6, S-R3, V0, V7, A2) with the six pinned dataflows and
+    ``"mixed"``, and the qwen2-1.5b FFN's gate/up and down products at 4
+    and 128 tokens for ip_m, op_m and gust_m.  Per case: tiles, the K1/K2
+    launches of one apply (> 0), the error against fp64 and against the
+    untiled plan (<= 1e-4 each), the device ms of the tiled and the
+    untiled apply, and the tiled apply's CUDA-event time (host gaps
+    included);
+11. the ``simulator`` and ``autotune`` policies over the nine Table 6
+    layers at block 32, beside the fastest pinned dataflow by phase 6's
+    kernel timer and the fastest of autotune's candidates by autotune's
+    own timer (whole applies by CUDA events, 20 reps); a second autotune
+    select must hit its cache, K1/K2 must launch during the sweep; then
+    one budgeted autotune on V0, with its host time;
+12. ``FlexagonPipeline`` over the qwen2-1.5b FFN chain (1536 -> 8960 ->
+    1536) at 4 tokens, ``policy="simulator"`` under ``PAPER_BUDGET`` on the
+    cuda backend, within 1e-4 of the fp64 chain.
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
@@ -60,6 +83,12 @@ printing any result.
 
 runs phases 1, 7 and 2 alone (the build, then each kernel against its
 plain version: K3 first, then K1 and K2) and prints no result lines.
+
+    python3 chip_smoke.py --serve
+
+runs phases 1 and 8 alone (the build, then granite serving with its
+decode-step p50/p99) and prints no result lines: a serving-only run to
+alternate with another tree's in one call.
 """
 from __future__ import annotations
 
@@ -322,7 +351,9 @@ def _rel_err(out, ref) -> float:
 
 
 def table6(device, calls):
-    """Every Table 6 layer, six pinned dataflows x2 applies, then auto."""
+    """Every Table 6 layer, six pinned dataflows x2 applies, then auto.
+
+    Returns each layer's operands ``{name: (a, b)}``."""
     import numpy as np
 
     from repro_torch import flexagon_plan, get_backend
@@ -333,9 +364,11 @@ def table6(device, calls):
     default_threshold = cuda.dense_threshold
     rng = np.random.default_rng(SEED + 1)
     bs = (32, 32, 32)
+    operands = {}
     for name, L in PAPER_LAYERS.items():
         a, b = _operands(rng, L.m, L.k, L.n, bs, L.density_a, L.density_b,
                          device)
+        operands[name] = (a, b)
         ref = a.double() @ b.double()
         worst = 0.0
         cuda.dense_threshold = 2.0            # escape off: kernels only
@@ -357,9 +390,38 @@ def table6(device, calls):
             f"dense_escape={'dense' in auto.aux}")
         if worst > REL_TOL:
             raise SystemExit(f"table6 {name}: error {worst:.2e} > {REL_TOL}")
+    return operands
 
 
-def qwen2_ffn(device, d=1536, f=8960, block=128):
+#: the qwen2-1.5b FFN stand-in of phases 4, 10 and 12: block sparsity 0.5
+#: at block 128 (no config of the repo prunes its FFN)
+QWEN2_D, QWEN2_F, QWEN2_BLOCK, QWEN2_SPARSITY = 1536, 8960, 128, 0.5
+
+
+def _qwen2_params(rng, device, d, f, block):
+    """The pruned FFN's parameters (random, from ``rng``) and its masked
+    fp32 weights ``(params, w_gate, w_up, w_down)``."""
+    import numpy as np
+
+    from repro_torch.convert import ffn_params_from_jax
+    from repro_torch.models.ffn import _masked_weight
+
+    scale = 1.0 / np.sqrt(d)
+    tree = {
+        "w_gate": {"w": rng.standard_normal((d, f), np.float32) * scale},
+        "w_up": {"w": rng.standard_normal((d, f), np.float32) * scale},
+        "w_down": {"w": rng.standard_normal((f, d), np.float32) * scale},
+        "block_mask": (rng.random((d // block, f // block))
+                       >= QWEN2_SPARSITY).astype(np.float32),
+    }
+    params = ffn_params_from_jax(tree, device=device)
+    mask = params["block_mask"]
+    return (params, _masked_weight(params["w_gate"]["w"], mask),
+            _masked_weight(params["w_up"]["w"], mask),
+            _masked_weight(params["w_down"]["w"], mask.T))
+
+
+def qwen2_ffn(device, d=QWEN2_D, f=QWEN2_F, block=QWEN2_BLOCK):
     """CompressedFFN at qwen2-1.5b width, decode (4) and prefill (128).
 
     Returns (planned entry, input, output) of each token count."""
@@ -367,24 +429,11 @@ def qwen2_ffn(device, d=1536, f=8960, block=128):
     import torch
 
     from repro_torch import compress_ffn, get_backend, sparse_ffn_apply
-    from repro_torch.convert import ffn_params_from_jax
-    from repro_torch.models.ffn import _masked_weight
 
-    sparsity = 0.5
+    sparsity = QWEN2_SPARSITY
     rng = np.random.default_rng(SEED + 2)
-    scale = 1.0 / np.sqrt(d)
-    tree = {
-        "w_gate": {"w": rng.standard_normal((d, f), np.float32) * scale},
-        "w_up": {"w": rng.standard_normal((d, f), np.float32) * scale},
-        "w_down": {"w": rng.standard_normal((f, d), np.float32) * scale},
-        "block_mask": (rng.random((d // block, f // block)) >= sparsity
-                       ).astype(np.float32),
-    }
-    params = ffn_params_from_jax(tree, device=device)
-    mask = params["block_mask"]
-    wg = _masked_weight(params["w_gate"]["w"], mask).double()
-    wu = _masked_weight(params["w_up"]["w"], mask).double()
-    wd = _masked_weight(params["w_down"]["w"], mask.T).double()
+    params, wg, wu, wd = _qwen2_params(rng, device, d, f, block)
+    wg, wu, wd = wg.double(), wu.double(), wd.double()
 
     cuda = get_backend("cuda")
     default_threshold = cuda.dense_threshold
@@ -557,7 +606,8 @@ def _device_ms(fn, reps=REPS):
 def time_main_path(calls, worst):
     """Replay each distinct kernel launch of the main path, as the cuda
     backend makes it, and time it beside its plain version, one
-    ``torch.matmul`` on the densified inputs, and its bound."""
+    ``torch.matmul`` on the densified inputs, and its bound.  Returns the
+    per-kernel sums and each call's ms by ``(label, dataflow)``."""
     import torch
 
     from repro_torch import get_backend
@@ -565,6 +615,7 @@ def time_main_path(calls, worst):
 
     cuda = get_backend("cuda")
     totals = {}
+    per_call = {}
     seen = set()
     fallbacks = []      # timings that fell back to CUDA events
     for label, plan, a, b, applied in calls:
@@ -594,6 +645,7 @@ def time_main_path(calls, worst):
         plain_ms, plain_how = _device_ms(lambda: call.run(plain))
         lib_ms, lib_how = _device_ms(lambda: torch.matmul(xd, yd))
         fallbacks += [h == "events" for h in (how, plain_how, lib_how)]
+        per_call[(label, plan.dataflow)] = ms
         t_bytes, t_ops = _bound_ms(call)
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
@@ -620,7 +672,360 @@ def time_main_path(calls, worst):
         t["calls"] += 1
     log(f"main-path timings on CUDA events (with the host's gaps): "
         f"{sum(fallbacks)} of {len(fallbacks)}")
-    return totals
+    return totals, per_call
+
+
+# -- phases 10-12 ------------------------------------------------------------
+
+#: the Table 6 layers that tile under PAPER_BUDGET at block 32
+TILED_LAYERS = ("R4", "R6", "S-R3", "V0", "V7", "A2")
+
+
+def _launches():
+    from repro_torch.kernels import stream as ks
+
+    return ks.stream_spmm.launches, ks.stream_panel_spmm.launches
+
+
+def _reset_launches():
+    from repro_torch.kernels import stream as ks
+
+    ks.stream_spmm.launches = 0
+    ks.stream_panel_spmm.launches = 0
+
+
+def _events_ms(fn, reps=REPS):
+    """Time per call with the host's gaps: CUDA events around ``reps``
+    calls after 3 warm-up calls, the mean."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class EscapeOff:
+    """The cuda backend's dense escape off for a block; the threshold is
+    restored on the way out, whatever happens."""
+
+    def __enter__(self):
+        from repro_torch import get_backend
+
+        self.cuda = get_backend("cuda")
+        self.saved = self.cuda.dense_threshold
+        self.cuda.dense_threshold = 2.0
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda.dense_threshold = self.saved
+
+
+def _tiled_case(label, dataflow, a, b, bs, out):
+    """One tiled plan under PAPER_BUDGET against fp64 and against the
+    untiled plan of the same dataflow (the heuristic's pick for mixed):
+    tiles, the K1/K2 launches of one apply, errors, device ms of each,
+    and the tiled apply's CUDA-event ms."""
+    import torch
+
+    from repro_torch import PAPER_BUDGET, TiledPlan, flexagon_plan
+
+    pinned = dataflow if dataflow != "mixed" else "auto"
+    tiled = flexagon_plan(a, b, dataflow=dataflow, block_shape=bs,
+                          backend="cuda", memory_budget=PAPER_BUDGET)
+    untiled = flexagon_plan(a, b, dataflow=pinned, block_shape=bs,
+                            backend="cuda")
+    k1, k2 = _launches()
+    got = tiled.apply(a, b)
+    torch.cuda.synchronize()
+    k1, k2 = (n - m for n, m in zip(_launches(), (k1, k2)))
+    want = untiled.apply(a, b)
+    ref = a.double() @ b.double()
+    err64, err_untiled = _rel_err(got, ref), _rel_err(got, want.double())
+    tiles = tiled.n_tiles if isinstance(tiled, TiledPlan) else 1
+    hist = tiled.tile_histogram if isinstance(tiled, TiledPlan) \
+        else {tiled.dataflow: 1}
+    row = {"case": label, "dataflow": dataflow, "tiles": tiles,
+           "tile_dataflows": hist, "untiled": untiled.dataflow,
+           "k1": k1, "k2": k2, "rel_err_fp64": err64,
+           "rel_err_untiled": err_untiled}
+    row["ms"], how = _device_ms(lambda: tiled.apply(a, b))
+    row["untiled_ms"], how_u = _device_ms(lambda: untiled.apply(a, b))
+    row["events_ms"] = _events_ms(lambda: tiled.apply(a, b))
+    log(f"tiled {label:14s} {dataflow:6s} tiles={tiles:4d} K1={k1:4d} "
+        f"K2={k2:4d} rel err fp64 {err64:.2e} untiled({untiled.dataflow}) "
+        f"{err_untiled:.2e} (tol {REL_TOL:g}) ms={row['ms']:.4f} "
+        f"untiled_ms={row['untiled_ms']:.4f} events_ms="
+        f"{row['events_ms']:.4f} ({how}; {how_u})"
+        + (f" tiles by dataflow {hist}" if dataflow == "mixed" else ""))
+    if k1 + k2 <= 0:
+        raise SystemExit(f"tiled {label}/{dataflow}: no K1/K2 launch")
+    if max(err64, err_untiled) > REL_TOL:
+        raise SystemExit(f"tiled {label}/{dataflow}: error {err64:.2e} / "
+                         f"{err_untiled:.2e} > {REL_TOL}")
+    out.append(row)
+
+
+def _families(fn):
+    """Device time (ms) of one call of ``fn`` by kernel family, from the
+    profiler, and its number of device events."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fams, n = Counter(), 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        name = e.name.lower()
+        fams["K1/K2" if "stream_" in name
+             else "copy/fill" if any(w in name for w in (
+                 "memcpy", "memset", "fill", "copy"))
+             else "index" if ("index" in name or "gather" in name)
+             else "other"] += e.device_time_total / 1e3
+    return dict(fams), n
+
+
+def tiled_phase(device, operands, layers=TILED_LAYERS, d=QWEN2_D,
+                f=QWEN2_F, block=QWEN2_BLOCK, token_counts=(4, 128)):
+    """Phase 10: budgeted plans (PAPER_BUDGET, Table 5) run tile by tile
+    through K1/K2, escape off: the tiling Table 6 layers at block 32 with
+    the six pinned dataflows and "mixed", then the qwen2-1.5b FFN's
+    gate/up and down products at 4 and 128 tokens for ip_m, op_m, gust_m.
+    Returns one row per case, and where one tiled apply's device time goes
+    in the case with the most tiles (V0 ip_n)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import PAPER_BUDGET, flexagon_plan
+    from repro_torch.core.dataflows import DATAFLOWS
+
+    rows = []
+    _reset_launches()
+    with EscapeOff() as esc:
+        log(f"tiled: cuda dense_threshold {esc.cuda.dense_threshold} "
+            f"(escape off; restored to {esc.saved} after)")
+        for name in layers:
+            a, b = operands[name]
+            for dataflow in DATAFLOWS + ("mixed",):
+                _tiled_case(name, dataflow, a, b, (32, 32, 32), rows)
+        rng = np.random.default_rng(SEED + 2)
+        _, wg, _, wd = _qwen2_params(rng, device, d, f, block)
+        for tokens in token_counts:
+            x = torch.as_tensor(rng.standard_normal((tokens, d), np.float32),
+                                device=device)
+            h = torch.as_tensor(rng.standard_normal((tokens, f), np.float32),
+                                device=device)
+            for part, a, b in (("gate/up", x, wg), ("down", h, wd)):
+                for dataflow in ("ip_m", "op_m", "gust_m"):
+                    _tiled_case(f"qwen2 {part} {tokens}", dataflow, a, b,
+                                (block,) * 3, rows)
+        # where one tiled apply's device time goes, on the case with the
+        # most tiles
+        a, b = operands["V0"]
+        plan = flexagon_plan(a, b, dataflow="ip_n", block_shape=(32,) * 3,
+                             backend="cuda", memory_budget=PAPER_BUDGET)
+        fams, n = _families(lambda: plan.apply(a, b))
+    log(f"tiled V0 ip_n ({plan.n_tiles} tiles) one apply: {n} device events, "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(
+            fams.items(), key=lambda kv: -kv[1])))
+    k1, k2 = _launches()
+    log(f"tiled-path kernel launches (one apply per case, then timing): "
+        f"stream_spmm {k1}, stream_panel_spmm {k2}; restored "
+        f"dense_threshold {esc.cuda.dense_threshold}")
+    if min(sum(r["k1"] for r in rows), sum(r["k2"] for r in rows)) <= 0:
+        raise SystemExit("tiled path: K1 or K2 never launched")
+    return {"cases": rows, "V0 ip_n breakdown": {
+        "tiles": plan.n_tiles, "device_events": n, "ms_by_family": fams}}
+
+
+#: suffix of a candidate that takes the cuda backend's dense escape
+ESCAPE = {False: "", True: "+escape"}
+
+
+def _candidates_ms(backend, a, b, bs):
+    """Autotune's candidate set on ``a @ b`` timed by autotune's own timer
+    (CUDA events around whole applies) with a steadier estimator: each
+    distinct (dataflow, dense escape) that a value of the backend's
+    ``dense_threshold`` knob gives, the mean of REPS applies after 3
+    warm-ups.  The knob is restored on the way out."""
+    from repro_torch import flexagon_plan
+    from repro_torch.core.dataflows import DATAFLOWS
+
+    out = {}
+    saved = backend.dense_threshold
+    try:
+        for knob in backend.tuning_knobs()["dense_threshold"]:
+            backend.dense_threshold = knob
+            for d in DATAFLOWS:
+                plan = flexagon_plan(a, b, dataflow=d, block_shape=bs,
+                                     backend=backend)
+                key = (d, "dense" in plan.aux)
+                if key not in out:
+                    out[key] = _events_ms(lambda: plan.apply(a, b))
+    finally:
+        backend.dense_threshold = saved
+    return out
+
+
+def policy_phase(device, operands, pinned_ms, budgeted="V0"):
+    """Phase 11: over the Table 6 layers at block 32, the ``simulator``
+    and ``autotune`` policies' picks beside two yardsticks: the fastest of
+    the six pinned dataflows by phase 6's kernel timer (escape off), and
+    the fastest of autotune's own candidates (dataflow x escape) by
+    autotune's timer, whole applies by CUDA events, with 20 reps where
+    autotune takes the best of 2.  Autotune sweeps on a cuda backend of
+    its own (its knob writes stay off the registered ``cuda``); a second
+    select must hit its cache, and K1/K2 must launch during the sweep.
+    Then one budgeted autotune on ``budgeted`` under PAPER_BUDGET."""
+    import torch
+
+    from repro_torch import PAPER_BUDGET, flexagon_plan, register_backend
+    from repro_torch.backends import AutotunePolicy, CudaBackend
+
+    tune = CudaBackend()
+    tune.name = "cuda-autotune"
+    register_backend(tune, overwrite=True)
+    pol = AutotunePolicy()
+    bs = (32, 32, 32)
+    rows = []
+    _reset_launches()
+    t_sweep = 0.0
+    for name, (a, b) in operands.items():
+        sim = flexagon_plan(a, b, block_shape=bs, backend="cuda",
+                            policy="simulator").dataflow
+        t0 = time.perf_counter()
+        plan = flexagon_plan(a, b, block_shape=bs, backend=tune, policy=pol)
+        torch.cuda.synchronize()
+        t_sweep += time.perf_counter() - t0
+        auto, knob = plan.dataflow, tune.dense_threshold
+        timings = dict(pol.last_timings)
+        hits, sweeps = pol.hits, pol.measurements
+        again = flexagon_plan(a, b, block_shape=bs, backend=tune,
+                              policy=pol).dataflow
+        if (pol.hits, pol.measurements) != (hits + 1, sweeps) \
+                or again != auto:
+            raise SystemExit(f"policy {name}: the second autotune select "
+                             f"missed its cache ({pol.stats})")
+        rows.append({"layer": name, "simulator": sim, "autotune": auto,
+                     "autotune_dense_threshold": knob,
+                     "autotune_escape": "dense" in plan.aux,
+                     "autotune_ms": {k: v * 1e3 for k, v in timings.items()}})
+    k1, k2 = _launches()
+    if min(k1, k2) <= 0:
+        raise SystemExit("policy: K1 or K2 never launched in the sweep")
+    agree = {"autotune": {"kernel": 0, "apply": 0},
+             "simulator": {"kernel": 0, "apply": 0}}
+    for row in rows:
+        a, b = operands[row["layer"]]
+        pinned = {d: ms for (label, d), ms in pinned_ms.items()
+                  if label == row["layer"]}
+        kernel = min(pinned, key=lambda d: (pinned[d], d))
+        cands = _candidates_ms(tune, a, b, bs)
+        apply_d, apply_esc = min(cands, key=lambda c: (cands[c], c))
+        for pick in ("autotune", "simulator"):
+            agree[pick]["kernel"] += row[pick] == kernel
+            agree[pick]["apply"] += row[pick] == apply_d
+        row.update({"fastest_kernel": kernel, "pinned_ms": pinned,
+                    "fastest_apply": apply_d, "fastest_apply_escape":
+                    apply_esc, "apply_ms": {
+                        d + ESCAPE[e]: ms for (d, e), ms in cands.items()}})
+        log(f"policy {row['layer']:6s} simulator -> {row['simulator']:6s} "
+            f"autotune -> {row['autotune']}{ESCAPE[row['autotune_escape']]}"
+            f" (dense_threshold {row['autotune_dense_threshold']}); fastest "
+            f"kernel (phase 6) -> {kernel} {pinned[kernel]:.4f} ms; fastest "
+            f"apply by events -> {apply_d}{ESCAPE[apply_esc]} "
+            f"{cands[apply_d, apply_esc]:.4f} ms; apply ms " + " ".join(
+                f"{k}={v:.4f}" for k, v in sorted(row["apply_ms"].items()))
+            + "; autotune ms " + " ".join(
+                f"{k}={v:.4f}" for k, v in sorted(
+                    row["autotune_ms"].items())))
+    log(f"policy: over {len(rows)} layers autotune agrees with the fastest "
+        f"kernel on {agree['autotune']['kernel']} and with the fastest "
+        f"apply by its own timer on {agree['autotune']['apply']}; simulator "
+        f"on {agree['simulator']['kernel']} and "
+        f"{agree['simulator']['apply']}; sweep host time {t_sweep:.2f} s; "
+        f"launches during the sweep: stream_spmm {k1}, stream_panel_spmm "
+        f"{k2}; stats {pol.stats}")
+    a, b = operands[budgeted]
+    pol_b = AutotunePolicy()
+    t0 = time.perf_counter()
+    plan = flexagon_plan(a, b, block_shape=bs, backend=tune, policy=pol_b,
+                         memory_budget=PAPER_BUDGET)
+    torch.cuda.synchronize()
+    t_budget = time.perf_counter() - t0
+    err = _rel_err(plan.apply(a, b), a.double() @ b.double())
+    log(f"policy {budgeted} under PAPER_BUDGET: autotune -> {plan.dataflow} "
+        f"({getattr(plan, 'n_tiles', 1)} tiles, dense_threshold "
+        f"{tune.dense_threshold}) in {t_budget:.2f} s of host time; rel err "
+        f"{err:.2e}; autotune ms " + " ".join(
+            f"{k}={v * 1e3:.4f}" for k, v in sorted(
+                pol_b.last_timings.items())))
+    if err > REL_TOL:
+        raise SystemExit(f"policy {budgeted}: error {err:.2e}")
+    return {"layers": rows, "agree": agree, "sweep_s": t_sweep,
+            "budgeted": {"layer": budgeted, "dataflow": plan.dataflow,
+                         "host_s": t_budget,
+                         "autotune_ms": {k: v * 1e3 for k, v in
+                                         pol_b.last_timings.items()}}}
+
+
+def pipeline_phase(device, d=QWEN2_D, f=QWEN2_F, block=QWEN2_BLOCK,
+                   tokens=4):
+    """Phase 12: ``FlexagonPipeline`` over the qwen2-1.5b FFN chain gate
+    -> down (d -> f -> d) at 4 tokens, ``policy="simulator"`` under
+    PAPER_BUDGET on the cuda backend, escape off; against the fp64
+    chain."""
+    import numpy as np
+    import torch
+
+    from repro_torch import PAPER_BUDGET, FlexagonPipeline, TiledPlan
+
+    rng = np.random.default_rng(SEED + 2)
+    _, wg, _, wd = _qwen2_params(rng, device, d, f, block)
+    x = torch.as_tensor(rng.standard_normal((tokens, d), np.float32),
+                        device=device)
+    with EscapeOff():
+        pipe = FlexagonPipeline.from_weights(
+            [wg, wd], tokens=tokens, block_shape=(block,) * 3,
+            backend="cuda", policy="simulator", memory_budget=PAPER_BUDGET)
+        _reset_launches()
+        out = pipe.apply(x)
+        torch.cuda.synchronize()
+        k1, k2 = _launches()
+        ms, how = _device_ms(lambda: pipe.apply(x))
+    ref = (x.double() @ wg.double()) @ wd.double()
+    err = _rel_err(out, ref)
+    tiles = [p.n_tiles if isinstance(p, TiledPlan) else 1
+             for p in pipe.plans]
+    log(f"pipeline qwen2-1.5b {d}->{f}->{d} tokens={tokens}: dataflows "
+        f"{pipe.dataflows} n_conversions={pipe.n_conversions} tiles "
+        f"{tiles}; launches stream_spmm {k1} stream_panel_spmm {k2}; "
+        f"ms={ms:.4f} ({how}); rel err vs fp64 chain {err:.2e} (tol "
+        f"{REL_TOL:g})")
+    if k1 + k2 <= 0:
+        raise SystemExit("pipeline: no K1/K2 launch")
+    if err > REL_TOL:
+        raise SystemExit(f"pipeline: error {err:.2e} > {REL_TOL}")
+    return {"dataflows": pipe.dataflows, "n_conversions": pipe.n_conversions,
+            "tiles": tiles, "k1": k1, "k2": k2, "ms": ms,
+            "rel_err_fp64": err}
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1049,12 +1454,17 @@ def main() -> int:
         log(f"sweeps done in {time.perf_counter() - t_start:.1f} s on "
             f"{card}")
         return 0
+    if "--serve" in sys.argv[1:]:
+        # phases 1 and 8 alone: the decode step's host-clock latency
+        serve_granite(device)
+        log(f"serve done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
     worst = kernel_sweep(device)
 
     calls = []
     ks.stream_spmm.launches = 0
     ks.stream_panel_spmm.launches = 0
-    table6(device, calls)
+    operands = table6(device, calls)
     ffn_runs = qwen2_ffn(device)
     torch.cuda.synchronize()
     launches = {"stream_spmm": ks.stream_spmm.launches,
@@ -1065,7 +1475,7 @@ def main() -> int:
                          f"{launches}")
 
     replay_ffn(ffn_runs, calls)
-    totals = time_main_path(calls, worst)
+    totals, per_call = time_main_path(calls, worst)
     log(f"times above sum over the {sum(t['calls'] for t in totals.values())}"
         f" distinct kernel calls of one main-path pass (each the median of "
         f"{REPS} calls), on {card}; "
@@ -1096,6 +1506,12 @@ def main() -> int:
     launches["moe_gmm"] = serving["moe_gmm"]
     totals["moe_gmm"], worst["moe_gmm"] = time_k3(
         path_check(model, params, prompts), worst["moe_gmm"])
+    log(f"phases 7-9 done at {time.perf_counter() - t_start:.1f} s")
+
+    tiled = tiled_phase(device, operands)
+    policy = policy_phase(device, operands, per_call)
+    pipeline = pipeline_phase(device)
+    log(f"phases 10-12 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, t in totals.items():
@@ -1115,7 +1531,8 @@ def main() -> int:
         f"; library = torch._grouped_mm on the real rows; on {card}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels}, indent=1))
+        {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
+         "pipeline": pipeline}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,13 @@ and the models and serving engine that consume it:
 - :func:`flexagon_plan` / :class:`FlexagonPlan` — plan once, execute many;
 - :class:`SparseOperand` / :class:`SparseFormat` — unified format surface;
 - :class:`PlanCache` — LRU-bounded fingerprint-keyed plan reuse;
-- ``repro_torch.backends`` — ``reference`` (torch executors) and ``cuda``
-  (the hand-written kernels in ``repro_torch.kernels``), plus selection
-  policies;
+- :class:`FlexagonPipeline` — ``plan_network``-backed layer chain;
+- ``repro_torch.backends`` — ``reference`` (torch executors), ``cuda``
+  (the hand-written kernels in ``repro_torch.kernels``) and ``simulator``
+  (the cycle models), plus the ``heuristic`` / ``simulator`` / ``autotune``
+  selection policies;
+- ``repro_torch.memory`` — :class:`MemoryBudget` / :data:`PAPER_BUDGET`
+  and :class:`TiledPlan`: budgeted, tiled and mixed-dataflow execution;
 - ``repro_torch.models`` — :func:`compress_ffn` / :func:`sparse_ffn_apply`,
   and the decoder LM (:func:`repro_torch.models.build_model`) with dense
   and MoE FFNs, whose ``sort`` dispatch runs the grouped-matmul kernel;
@@ -22,6 +26,7 @@ nothing of JAX.
 """
 from .api import (  # noqa: F401
     PHASE1_COUNTERS,
+    FlexagonPipeline,
     FlexagonPlan,
     PlanCache,
     SparseFormat,
@@ -34,10 +39,12 @@ from .backends import (  # noqa: F401
     get_policy,
     register_backend,
 )
+from .memory import PAPER_BUDGET, MemoryBudget, TiledPlan  # noqa: F401
 from .models import compress_ffn, sparse_ffn_apply  # noqa: F401
 
 __all__ = [
     "PHASE1_COUNTERS",
+    "FlexagonPipeline",
     "FlexagonPlan",
     "PlanCache",
     "SparseFormat",
@@ -47,6 +54,9 @@ __all__ = [
     "get_backend",
     "get_policy",
     "register_backend",
+    "MemoryBudget",
+    "PAPER_BUDGET",
+    "TiledPlan",
     "compress_ffn",
     "sparse_ffn_apply",
 ]

@@ -17,17 +17,29 @@ This module makes the split explicit:
   ``plan.apply(a, b)`` (or ``plan(a, b)``) is phase 2: gathers through
   frozen device-side layouts and the planned executor, with no host-side
   plan building and no host→device copy of plan arrays;
-- :class:`PlanCache` — fingerprint-keyed plan reuse for serving loops.
+- :class:`PlanCache` — fingerprint-keyed plan reuse for serving loops;
+- :class:`FlexagonPipeline` — ``plan_network``-backed per-layer plan chain
+  that keeps inter-layer activations in the producer's major order
+  (Table 4 legality).
 
-``backend=`` names the execution substrate (``reference`` / ``cuda``, or
-any registered :class:`repro_torch.backends.ExecutionBackend`) and
-``policy=`` the dataflow-selection strategy.  ``device=None`` runs on the
-card and raises without one; pass ``device="cpu"`` for the plain versions.
+``backend=`` names the execution substrate (``reference`` / ``cuda`` /
+``simulator``, or any registered
+:class:`repro_torch.backends.ExecutionBackend`) and ``policy=`` the
+dataflow-selection strategy (``heuristic`` / ``simulator`` / ``autotune``,
+or any :class:`repro_torch.backends.SelectionPolicy`).  ``device=None``
+runs on the card and raises without one; pass ``device="cpu"`` for the
+plain versions.
 
-Not ported yet, and raising ``NotImplementedError``: ``memory_budget=`` and
-``dataflow="mixed"`` (ROADMAP queue 1, item 6), ``mesh=``/``partition=``
-(item 9).  ``verify=`` is accepted and checks nothing until ``analysis/``
-is ported (item 10).  ``FlexagonPipeline`` is a later slice.
+``memory_budget=`` adds the paper's third pillar: when the pattern's
+working set exceeds the on-chip :class:`repro_torch.memory.MemoryBudget`,
+phase 1 tiles the operation with the dataflow's scheduler and returns a
+:class:`repro_torch.memory.TiledPlan` — same ``apply`` surface, one kernel
+launch per tile.  ``dataflow="mixed"`` makes the dataflow a per-tile
+choice.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh=``/
+``partition=`` (ROADMAP queue 1, item 9), and ``verify=True`` — also the
+``REPRO_VERIFY=1`` default — which needs the plan verifier (item 10).
 
 ``PHASE1_COUNTERS`` counts selector / layout / index-plan constructions so
 tests (and profiles) can assert that execution never re-plans.
@@ -37,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Any, Optional, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,14 +59,15 @@ from .backends import ExecutionBackend, get_backend
 from .backends.base import TABLE3_FORMATS as _TABLE3_FORMATS
 from .backends.base import allowed_dataflows
 from .backends.policies import SelectionContext, SelectionPolicy, get_policy
-from .config import resolve_device
+from .config import resolve_device, resolve_verify
 from .core import dataflows as df
 from .core.formats import (
     CSC, CSR, BlockCSC, BlockCSR, SparseFormat, block_occupancy,
     dense_to_bcsc, dense_to_bcsr, to_host,
 )
 from .core.selector import (
-    DataflowEstimate, DeviceSpec, LayerShape, estimate,
+    DataflowEstimate, DeviceSpec, LayerShape, estimate, plan_network,
+    transition_needs_conversion,
 )
 
 __all__ = [
@@ -63,6 +76,7 @@ __all__ = [
     "CompressionLayout",
     "FlexagonPlan",
     "flexagon_plan",
+    "FlexagonPipeline",
     "PlanCache",
     "PHASE1_COUNTERS",
 ]
@@ -75,17 +89,21 @@ _BLOCK_CLS = {SparseFormat.BCSR: BlockCSR, SparseFormat.BCSC: BlockCSC}
 _SCALAR_CLS = {SparseFormat.CSR: CSR, SparseFormat.CSC: CSC}
 
 
-def _refuse_unported(memory_budget=None, mesh=None, partition=None,
-                     dataflow: str = "auto") -> None:
-    """The entry points' arguments whose machinery is a later slice."""
-    if memory_budget is not None or dataflow == "mixed":
-        raise NotImplementedError(
-            "memory_budget= and dataflow='mixed' (tiled plans) are not "
-            "ported yet: ROADMAP queue 1, item 6 (memory/)")
+def _refuse_unported(mesh=None, partition=None,
+                     verify: Optional[bool] = None) -> None:
+    """The entry points' arguments whose machinery is a later slice.
+
+    ``verify=None`` defers to ``REPRO_VERIFY``, so that default raises too:
+    a plan is never handed out as verified when nothing verified it."""
     if mesh is not None or partition is not None:
         raise NotImplementedError(
             "mesh= and partition= (sharded plans) are not ported yet: "
             "ROADMAP queue 1, item 9 (distribution)")
+    if resolve_verify(verify):
+        raise NotImplementedError(
+            "verify=True (or REPRO_VERIFY=1) needs the plan verifier, which "
+            "is not ported yet: ROADMAP queue 1, item 10 (analysis/); pass "
+            "verify=False or unset REPRO_VERIFY")
 
 
 @dataclasses.dataclass
@@ -453,6 +471,7 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
                   memory_budget: Optional[Any] = None,
                   mesh: Optional[Any] = None,
                   partition: Optional[Any] = None,
+                  tile_dataflows: Optional[Tuple[str, ...]] = None,
                   verify: Optional[bool] = None) -> FlexagonPlan:
     """Phase 1, exactly once: inspect patterns, select, lay out, configure.
 
@@ -462,25 +481,47 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
     values sharing the pattern — see :meth:`FlexagonPlan.apply`.
 
     ``backend`` picks the execution substrate (``"reference"`` default,
-    ``"cuda"``, or a registered custom backend); ``policy`` the selection
-    strategy (``"heuristic"`` default, or a ``SelectionPolicy``).  An
-    explicit ``dataflow=`` pins the choice and bypasses the policy.
-    ``device=None`` resolves to the card (and raises without one).
+    ``"cuda"``, ``"simulator"``, or a registered custom backend); ``policy``
+    the selection strategy (``"heuristic"`` default, ``"simulator"``,
+    ``"autotune"``, or a ``SelectionPolicy``).  An explicit ``dataflow=``
+    pins the choice and bypasses the policy.  ``device=None`` resolves to
+    the card (and raises without one).
+
+    ``memory_budget`` (a :class:`repro_torch.memory.MemoryBudget`) bounds
+    the on-chip working set: a pattern that exceeds it is partitioned by
+    the chosen dataflow's tile scheduler and a
+    :class:`repro_torch.memory.TiledPlan` is returned instead (same
+    ``apply`` contract).  Policies see the budget in their
+    :class:`SelectionContext` and rank dataflows by tiled traffic.
+
+    ``dataflow="mixed"`` (requires a ``memory_budget``) makes dataflow a
+    *per-tile* decision: the mixed scheduler tiles the output grid into
+    disjoint C regions and the policy's ``select_tile`` picks each tile's
+    dataflow on the tile's own occupancy slice.  A pattern that fits in one
+    resident tile degenerates to the policy's choice for that single tile.
+    ``tile_dataflows`` pins the mixed per-tile choices outright, skipping
+    the policy (callers that already ran the selection — ``PlanCache``).
+
+    ``mesh=``/``partition=`` and ``verify=True`` (also through
+    ``REPRO_VERIFY=1``) are not ported yet and raise
+    ``NotImplementedError``.
 
     Phase 1 is observable (:mod:`repro_torch.obs`): the build runs under a
-    ``plan.phase1`` span with ``plan.select`` / ``plan.tables`` /
-    ``plan.prepare`` children when ``REPRO_TRACE`` is on, and counts into
-    ``plan.builds`` / ``plan.build_s`` / ``policy.select_s``.
+    ``plan.phase1`` span with ``plan.select`` / ``plan.schedule`` /
+    ``plan.tables`` / ``plan.prepare`` children when ``REPRO_TRACE`` is on,
+    and counts into ``plan.builds`` / ``plan.build_s`` / ``policy.select_s``.
     """
-    _refuse_unported(memory_budget, mesh, partition, dataflow)
-    del verify      # accepted; no verifier is ported yet (queue 1, item 10)
+    _refuse_unported(mesh, partition, verify)
     dev = resolve_device(device)
     t0 = obs.now_ns()
     with obs.span("plan.phase1", dataflow=dataflow) as sp:
         plan = _plan_phase1(a_spec, b_spec, dataflow=dataflow,
                             block_shape=tuple(block_shape), spec=spec,
-                            backend=backend, policy=policy, device=dev)
-        sp.set(chosen=plan.dataflow, backend=plan.backend)
+                            backend=backend, policy=policy, device=dev,
+                            memory_budget=memory_budget,
+                            tile_dataflows=tile_dataflows)
+        sp.set(chosen=plan.dataflow, kind=type(plan).__name__,
+               backend=plan.backend)
     reg = obs.get_registry()
     reg.counter("plan.builds").inc()
     reg.histogram("plan.build_s").observe((obs.now_ns() - t0) / 1e9)
@@ -490,7 +531,9 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
 def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
                  block_shape: Tuple[int, int, int], spec: DeviceSpec,
                  backend: BackendArg, policy: PolicyArg,
-                 device: torch.device) -> FlexagonPlan:
+                 device: torch.device,
+                 memory_budget: Optional[Any] = None,
+                 tile_dataflows: Optional[Tuple[str, ...]] = None):
     """:func:`flexagon_plan` body (the public wrapper adds the obs seam)."""
     bm, bk, bn = block_shape
     (m, k), occ_a = _pattern_of(a_spec, (bm, bk))
@@ -512,18 +555,52 @@ def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
     if not allowed:
         raise ValueError(f"backend {backend_obj.name!r} supports no dataflow "
                          f"at block_shape={block_shape}")
-    if dataflow == "auto":
+    mixed = dataflow == "mixed"
+    if mixed and memory_budget is None:
+        raise ValueError(
+            "dataflow='mixed' requires a memory_budget: per-tile dataflow "
+            "choice lives at the tiling seam")
+    if dataflow == "auto" or mixed:
         PHASE1_COUNTERS["selector"] += 1
     elif dataflow not in df.DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}")
     ctx = SelectionContext(shape=shape, block_shape=block_shape,
                            occ_a=occ_a, occ_b=occ_b, fingerprint=fingerprint,
-                           backend=backend_obj, spec=spec, allowed=allowed)
-    t_sel = obs.now_ns()
-    with obs.span("plan.select", policy=type(policy_obj).__name__):
-        dataflow = policy_obj.select(ctx)
-    obs.get_registry().histogram("policy.select_s").observe(
-        (obs.now_ns() - t_sel) / 1e9)
+                           backend=backend_obj, spec=spec, allowed=allowed,
+                           memory_budget=memory_budget, device=device)
+    if not mixed:
+        t_sel = obs.now_ns()
+        with obs.span("plan.select", policy=type(policy_obj).__name__):
+            dataflow = policy_obj.select(ctx)
+        obs.get_registry().histogram("policy.select_s").observe(
+            (obs.now_ns() - t_sel) / 1e9)
+
+    if memory_budget is not None:
+        from .memory.tiled_plan import plan_tiled   # lazy: memory uses api
+
+        tiled = plan_tiled(dataflow=dataflow, occ_a=occ_a, occ_b=occ_b,
+                           shapes=(m, k, n), block_shape=block_shape,
+                           budget=memory_budget, backend=backend_obj,
+                           fingerprint=fingerprint, device=device, spec=spec,
+                           policy=policy_obj,
+                           tile_dataflows=tile_dataflows if mixed else None)
+        if tiled is not None:
+            return tiled
+
+    if mixed:
+        # the whole pattern fits in one resident tile — nothing to mix;
+        # degenerate to the policy's choice for that single tile (the same
+        # call PlanCache keys mixed plans by, so the cache identity and the
+        # built plan can never disagree)
+        if tile_dataflows:
+            dataflow = tile_dataflows[0]
+        else:
+            from .memory.tiled_plan import mixed_tile_dataflows
+
+            dataflow = mixed_tile_dataflows(
+                occ_a, occ_b, block_shape, memory_budget,
+                backend=backend_obj, policy=policy_obj, spec=spec,
+                fingerprint=fingerprint, device=device)[0]
 
     fmt_a, fmt_b = _TABLE3_FORMATS[dataflow]
     with obs.span("plan.tables", dataflow=dataflow):
@@ -573,7 +650,15 @@ class PlanCache:
             raise ValueError(f"maxsize must be >= 1 or None, got {maxsize}")
         self.spec = spec
         self.maxsize = maxsize
-        self._plans: "OrderedDict[Tuple, FlexagonPlan]" = OrderedDict()
+        self._plans: "OrderedDict[Tuple, Any]" = OrderedDict()
+        #: per-tile-choices memo for mixed lookups: repeat hits must not
+        #: re-run the mixed schedule + per-tile selection.  LRU-bounded so
+        #: a stream of distinct patterns (or per-request policy instances,
+        #: which the identity-hashed key pins alive) cannot grow it — nor
+        #: hold dead policies — without limit
+        self._mixed_choices: "OrderedDict[Tuple, Tuple[str, ...]]" = \
+            OrderedDict()
+        self._mixed_choices_cap = maxsize if maxsize is not None else 1024
         self.hits = 0
         self.builds = 0
         self.evictions = 0
@@ -600,9 +685,9 @@ class PlanCache:
             memory_budget: Optional[Any] = None,
             mesh: Optional[Any] = None,
             partition: Optional[Any] = None,
-            verify: Optional[bool] = None) -> FlexagonPlan:
+            verify: Optional[bool] = None):
         # ``verify`` gates plan *builds* only and is not part of the key
-        _refuse_unported(memory_budget, mesh, partition, dataflow)
+        _refuse_unported(mesh, partition, verify)
         dev = resolve_device(device)
         bm, bk, bn = block_shape
         (m, k), occ_a = _pattern_of(a_spec, (bm, bk))
@@ -611,14 +696,40 @@ class PlanCache:
         policy_obj = get_policy(policy, dataflow)
         fingerprint = _fingerprint(occ_a, occ_b, (m, k, n),
                                    tuple(block_shape))
-        key = (fingerprint, dataflow, backend_obj.name,
-               policy_obj.cache_key, str(dev))
+        policy_key: Any = policy_obj.cache_key
+        choices: Optional[Tuple[str, ...]] = None
+        if dataflow == "mixed" and memory_budget is not None:
+            # mixed identity is the policy's *per-tile choices*: two
+            # policies that agree tile-by-tile share one plan.  Memoized so
+            # repeat lookups skip the mixed schedule + per-tile selection
+            from .memory.tiled_plan import mixed_tile_dataflows  # lazy
+
+            # the memo holds the policy *object* (identity-hashed): a
+            # string key could collide across short-lived instances, and
+            # the strong reference keeps each instance's choices its own
+            memo_key = (fingerprint, memory_budget, backend_obj.name,
+                        policy_obj, str(dev))
+            choices = self._mixed_choices.get(memo_key)
+            if choices is None:
+                choices = mixed_tile_dataflows(
+                    occ_a, occ_b, tuple(block_shape), memory_budget,
+                    backend=backend_obj, policy=policy_obj, spec=self.spec,
+                    fingerprint=fingerprint, device=dev)
+                self._mixed_choices[memo_key] = choices
+                if len(self._mixed_choices) > self._mixed_choices_cap:
+                    self._mixed_choices.popitem(last=False)
+            else:
+                self._mixed_choices.move_to_end(memo_key)
+            policy_key = ("mixed-tiles",) + choices
+        key = (fingerprint, dataflow, backend_obj.name, policy_key, str(dev),
+               memory_budget)
         plan = self._plans.get(key)
         if plan is None:
             plan = flexagon_plan(a_spec, b_spec, dataflow=dataflow,
                                  block_shape=block_shape, spec=self.spec,
                                  backend=backend_obj, policy=policy_obj,
-                                 device=dev, verify=verify)
+                                 device=dev, memory_budget=memory_budget,
+                                 tile_dataflows=choices, verify=verify)
             self._plans[key] = plan
             self.builds += 1
             obs.get_registry().counter("cache.misses").inc()
@@ -631,3 +742,106 @@ class PlanCache:
             obs.get_registry().counter("cache.hits").inc()
             self._plans.move_to_end(key)
         return plan
+
+
+# ---------------------------------------------------------------------------
+# FlexagonPipeline — plan_network over a layer chain (Table 4)
+# ---------------------------------------------------------------------------
+
+
+class FlexagonPipeline:
+    """Per-layer plans chained through Table 4 format-transition legality.
+
+    Phase 1 runs :func:`repro_torch.core.selector.plan_network` over the
+    whole chain (a DP that charges explicit conversions), then builds one
+    :class:`FlexagonPlan` (or, over a memory budget,
+    :class:`repro_torch.memory.TiledPlan`) per layer with the planned
+    dataflow.  ``apply(x)`` runs the chain; activations between layers keep
+    the producer's major order — consumers whose Table 4 transition is
+    legal ingest it directly through their frozen layout, and only ``EC``
+    cells (counted in ``n_conversions``) imply a reorder.
+    """
+
+    def __init__(self, plans: List[Any], weights: List[SparseOperand],
+                 dataflows: List[str], conversions: List[bool]):
+        self.plans = plans
+        self.weights = weights
+        self.dataflows = dataflows
+        self.conversions = conversions
+
+    @classmethod
+    def from_weights(cls, weights: Sequence[Any], *, tokens: int,
+                     block_shape: Tuple[int, int, int] = (128, 128, 128),
+                     spec: DeviceSpec = DeviceSpec(),
+                     dataflows: Optional[Sequence[str]] = None,
+                     backend: BackendArg = None,
+                     policy: PolicyArg = None,
+                     device=None,
+                     memory_budget: Optional[Any] = None,
+                     mesh: Optional[Any] = None,
+                     partition: Optional[Any] = None
+                     ) -> "FlexagonPipeline":
+        """Plan a chain ``x → x@W1 → (x@W1)@W2 → …`` (phase 1 once).
+
+        ``weights`` are dense arrays or tensors or :class:`SparseOperand`;
+        layer i's K dim must equal layer i-1's N dim.  ``policy`` prices the
+        per-layer candidates inside the ``plan_network`` DP (Table 4
+        conversion penalties stay); ``backend`` is the substrate every
+        layer plan targets, on ``device``.  ``memory_budget`` threads the
+        on-chip capacity through the whole chain: the DP prices each
+        (layer, dataflow) cell at its *tiled* cost and any over-budget layer
+        plans into a :class:`repro_torch.memory.TiledPlan`.
+        ``mesh``/``partition`` are not ported yet and raise.
+        """
+        _refuse_unported(mesh, partition, verify=False)
+        dev = resolve_device(device)
+        bm, bk, bn = block_shape
+        backend_obj = _resolve_backend(backend)
+        policy_obj = get_policy(policy)
+        shapes = []
+        for i, w in enumerate(weights):
+            (kw, nw), occ = _pattern_of(w, (bk, bn))
+            if i > 0 and kw != shapes[-1].n:
+                raise ValueError(
+                    f"layer {i}: K={kw} != previous layer N={shapes[-1].n}")
+            shapes.append(LayerShape(m=tokens, k=kw, n=nw, density_a=1.0,
+                                     density_b=float(occ.mean()),
+                                     block=tuple(block_shape)))
+        if dataflows is None:
+            PHASE1_COUNTERS["selector"] += 1
+            dataflows = plan_network(
+                shapes, spec,
+                layer_cost=lambda l, d: policy_obj.layer_cost(
+                    l, d, spec, memory_budget=memory_budget))
+        dataflows = list(dataflows)
+
+        plans, packed = [], []
+        for w, s, d in zip(weights, shapes, dataflows):
+            plan = flexagon_plan((tokens, s.k), w, dataflow=d,
+                                 block_shape=block_shape, spec=spec,
+                                 backend=backend_obj, device=dev,
+                                 memory_budget=memory_budget)
+            plans.append(plan)
+            packed.append(plan.pack_b(w))
+        conversions = [False] + [
+            transition_needs_conversion(dataflows[i - 1], dataflows[i])
+            for i in range(1, len(dataflows))]
+        return cls(plans, packed, dataflows, conversions)
+
+    @property
+    def n_conversions(self) -> int:
+        """Explicit conversions (Table 4 "EC" cells) along the chain."""
+        return sum(self.conversions)
+
+    @property
+    def majors(self) -> List[str]:
+        """Activation major order after each layer (Table 3)."""
+        return [p.out_major for p in self.plans]
+
+    def apply(self, x) -> torch.Tensor:
+        """Run all layers, with zero host-side plan work."""
+        for plan, w in zip(self.plans, self.weights):
+            x = plan.apply(x, w)
+        return x
+
+    __call__ = apply

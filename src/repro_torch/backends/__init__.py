@@ -1,11 +1,15 @@
 """Pluggable execution backends and selection policies for the plan API.
 
 - **backends** (:class:`ExecutionBackend`) are execution substrates —
-  ``reference`` (the torch dataflow executors) and ``cuda`` (the
-  hand-written Hopper kernels).  Each declares capabilities, builds
-  pattern-only aux at plan time (``prepare``) and executes (``execute``);
+  ``reference`` (the torch dataflow executors), ``cuda`` (the
+  hand-written Hopper kernels) and ``simulator`` (cycle-level cost oracle
+  + reference-validated execution).  Each declares capabilities, builds
+  pattern-only aux at plan time (``prepare``), executes (``execute``) and
+  prices (shape, dataflow) pairs (``cost``);
 - **policies** (:class:`SelectionPolicy`) decide *which* dataflow a plan
-  uses — ``heuristic`` (analytical roofline) or a fixed pin.
+  uses — ``heuristic`` (analytical roofline), ``simulator`` (simulated
+  cycles, the paper's phase 1 proper), ``autotune`` (measured on the
+  device, cached by pattern fingerprint), or a fixed pin.
 
 ``flexagon_plan(a, b, backend=..., policy=...)`` is the front door; the
 registry below is how plans (which store only a backend *name*) resolve
@@ -22,13 +26,16 @@ from .base import (  # noqa: F401
 )
 from .cuda import CudaBackend  # noqa: F401
 from .policies import (  # noqa: F401
+    AutotunePolicy,
     FixedPolicy,
     HeuristicPolicy,
     SelectionContext,
     SelectionPolicy,
+    SimulatorPolicy,
     get_policy,
 )
 from .reference import ReferenceBackend  # noqa: F401
+from .simulator import SimulatorBackend  # noqa: F401
 
 __all__ = [
     "BackendCapability",
@@ -36,6 +43,7 @@ __all__ = [
     "allowed_dataflows",
     "ReferenceBackend",
     "CudaBackend",
+    "SimulatorBackend",
     "TABLE3_FORMATS",
     "register_backend",
     "get_backend",
@@ -43,6 +51,8 @@ __all__ = [
     "SelectionContext",
     "SelectionPolicy",
     "HeuristicPolicy",
+    "SimulatorPolicy",
+    "AutotunePolicy",
     "FixedPolicy",
     "get_policy",
 ]
@@ -50,3 +60,4 @@ __all__ = [
 # Default substrates, importable by name everywhere a plan runs.
 register_backend(ReferenceBackend())
 register_backend(CudaBackend())
+register_backend(SimulatorBackend())

@@ -6,26 +6,30 @@ the hardware".  This module is the seam that keeps both halves swappable:
 - an :class:`ExecutionBackend` is one *execution substrate* for planned
   SpMSpM — it declares what it can run (:class:`BackendCapability`), builds
   pattern-only auxiliary schedules at plan time (:meth:`ExecutionBackend.
-  prepare` — the "configure the hardware" step) and executes a plan
-  (:meth:`ExecutionBackend.execute`);
+  prepare` — the "configure the hardware" step), executes a plan
+  (:meth:`ExecutionBackend.execute`), and prices a (shape, dataflow) pair
+  (:meth:`ExecutionBackend.cost` — the oracle that selection policies
+  consult);
 - the registry maps backend names to live instances so a
   :class:`repro_torch.api.FlexagonPlan` carries only a *name* and resolves
   the substrate at execution time.
 
-Two backends ship by default (registered in :mod:`repro_torch.backends`):
-``reference`` (the torch dataflow executors) and ``cuda`` (the hand-written
-kernels).
+Three backends ship by default (registered in
+:mod:`repro_torch.backends`): ``reference`` (the torch dataflow executors),
+``cuda`` (the hand-written kernels) and ``simulator`` (the cycle-level cost
+oracle, executing through the reference executors).
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..core.dataflows import DATAFLOWS
 from ..core.formats import SparseFormat
+from ..core.selector import DeviceSpec, LayerShape, estimate
 
 __all__ = [
     "TABLE3_FORMATS",
@@ -82,6 +86,14 @@ class ExecutionBackend(abc.ABC):
 
     name: str = "abstract"
 
+    #: Can :class:`repro_torch.memory.TiledPlan` stream OP k-slabs as one
+    #: lane of padded, shape-uniform slab sub-plans summed into one carry?
+    #: Requires ``execute`` to take sub-plans whose work lists carry pad
+    #: entries aimed one past the output grid (and drop them).  Both
+    #: ``reference`` and ``cuda`` qualify; a backend that needs each tile's
+    #: own unpadded plan leaves this ``False`` and gets the tile loop.
+    scan_streaming: bool = False
+
     @abc.abstractmethod
     def capabilities(self) -> BackendCapability:
         """Declare what this backend can run."""
@@ -111,6 +123,15 @@ class ExecutionBackend(abc.ABC):
         """
         del plans
 
+    def tuning_knobs(self) -> Dict[str, Tuple[Any, ...]]:
+        """Declare this backend's tunable execution knobs.
+
+        Maps attribute name -> candidate values.  ``AutotunePolicy`` sweeps
+        the cross product jointly with the dataflow choice and applies the
+        winning values to the backend instance.  Default: no knobs.
+        """
+        return {}
+
     @abc.abstractmethod
     def execute(self, plan, a, b, out_dtype) -> torch.Tensor:
         """Phase 2: run ``C = A @ B`` for compressed operands ``a``/``b``
@@ -119,6 +140,16 @@ class ExecutionBackend(abc.ABC):
         Must not rebuild any phase-1 artifact —
         ``repro_torch.api.PHASE1_COUNTERS`` stays untouched.
         """
+
+    def cost(self, shape: LayerShape, dataflow: str,
+             spec: Optional[DeviceSpec] = None) -> float:
+        """Estimated execution time in seconds for ``dataflow`` on ``shape``.
+
+        The oracle that selection policies consult.  Default: the analytical
+        roofline estimate on ``spec``; backends with better knowledge (cycle
+        models, measurements) override.
+        """
+        return estimate(shape, dataflow, spec or DeviceSpec()).time_s
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -64,6 +64,9 @@ class KernelCall(NamedTuple):
 
 class CudaBackend(ExecutionBackend):
     name = "cuda"
+    # the kernels drop pad runs aimed one past the output grid, so padded
+    # OP slab sub-plans (tiled plans) and padded lanes execute as they are
+    scan_streaming = True
 
     def __init__(self, dense_threshold: float = 0.5):
         #: occupancy escape hatch: when a plan's effectual block-pair count
@@ -78,6 +81,10 @@ class CudaBackend(ExecutionBackend):
             formats=tuple(set(TABLE3_FORMATS.values())),
             block_multiple=1,
         )
+
+    def tuning_knobs(self) -> Dict[str, Tuple[Any, ...]]:
+        # 2.0 disables the escape hatch (the ratio never exceeds 1.0)
+        return {"dense_threshold": (0.25, 0.5, 2.0)}
 
     # -- phase 1 ---------------------------------------------------------
     def _work_ratio(self, plan) -> float:

@@ -4,7 +4,9 @@ Layers:
   formats    — block and scalar (paper-exact) compressed formats
   dataflows  — numpy plan builders + the six dataflows as torch references
   selector   — phase-1 mapper/compiler: per-layer dataflow choice + network plan
-  workloads  — the paper's Table 6 layers
+  mrn        — functional Merger-Reduction Network model
+  simulator  — cycle-level models of SIGMA-/SpArch-/GAMMA-like and Flexagon
+  workloads  — DNN layer tables (paper Tables 2/6) for the evaluation
 """
 from .formats import (  # noqa: F401
     BlockCSR, BlockCSC, CSR, CSC,

@@ -252,7 +252,12 @@ def ip_m(a: BlockCSR, b: BlockCSC, plan: IPPlan | None = None
 
 def _stream_execute(a_data, b_data, plan: StreamPlan, out_grid, blocks, m, n):
     """Shared OP/Gust executor: flat block-GEMM work list + coordinate-indexed
-    psum accumulation (the PSRAM/merge analogue) on a flattened block index."""
+    psum accumulation (the PSRAM/merge analogue) on a flattened block index.
+
+    Entries whose block coordinates lie outside the grid are dropped, as
+    JAX's scatter drops them: the pad entries of a tiled plan's padded
+    slabs aim one row past the grid.  They add into one spare block that is
+    cut away, so nothing is filtered on the host."""
     mb, nb = out_grid
     bm, bn = blocks
     dev = a_data.device
@@ -261,10 +266,13 @@ def _stream_execute(a_data, b_data, plan: StreamPlan, out_grid, blocks, m, n):
     a_blk = a_data.float()[_on(plan.a_slot, dev)]        # (W, bm, bk)
     b_blk = b_data.float()[_on(plan.b_slot, dev)]        # (W, bk, bn)
     psums = torch.bmm(a_blk, b_blk)                      # (W, bm, bn)
-    flat = _on(plan.ci, dev).long() * nb + _on(plan.cj, dev).long()
-    c = torch.zeros((mb * nb, bm, bn), dtype=psums.dtype, device=dev)
+    ci, cj = _on(plan.ci, dev).long(), _on(plan.cj, dev).long()
+    inside = (ci >= 0) & (ci < mb) & (cj >= 0) & (cj < nb)
+    flat = torch.where(inside, ci * nb + cj, mb * nb)
+    c = torch.zeros((mb * nb + 1, bm, bn), dtype=psums.dtype, device=dev)
     c.index_add_(0, flat, psums)
-    c = c.reshape(mb, nb, bm, bn).transpose(1, 2).reshape(mb * bm, nb * bn)
+    c = c[:-1].reshape(mb, nb, bm, bn).transpose(1, 2).reshape(mb * bm,
+                                                              nb * bn)
     return c[:m, :n]
 
 

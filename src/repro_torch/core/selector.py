@@ -231,22 +231,33 @@ def transition_needs_conversion(prev: str, nxt: str) -> bool:
 
 def plan_network(layers: Sequence[LayerShape], spec: DeviceSpec = DeviceSpec(),
                  conversion_cost_s: float | None = None,
-                 layer_cost=None) -> List[str]:
+                 layer_cost=None, memory_budget=None) -> List[str]:
     """Choose a per-layer dataflow sequence minimizing total time including
     explicit-conversion penalties (dynamic program over Table 4 legality).
 
     This is the inter-layer mechanism of contribution (2): the planner prefers
     sequences whose produced format feeds the next layer directly.
 
-    ``layer_cost(shape, dataflow) -> seconds`` swaps the per-layer oracle.
-    Default: the analytical roofline estimate on ``spec``.
+    ``layer_cost(shape, dataflow) -> seconds`` swaps the per-layer oracle —
+    the seam :class:`repro_torch.backends.SelectionPolicy` implementations
+    plug into (simulated cycles, measurements, …).  Default: the analytical
+    roofline estimate on ``spec``; with a ``memory_budget``
+    (:class:`repro_torch.memory.MemoryBudget`) the default prices each
+    cell's *tiled* execution instead, so over-budget layers are charged
+    their re-stream and cross-tile merge traffic.
     """
     from .dataflows import DATAFLOWS
 
     if not layers:
         return []
     if layer_cost is None:
-        layer_cost = lambda l, d: estimate(l, d, spec).time_s
+        if memory_budget is not None:
+            from ..memory.traffic import tiled_estimate  # lazy: no cycle
+
+            layer_cost = lambda l, d: tiled_estimate(
+                l, d, memory_budget, spec).time_s
+        else:
+            layer_cost = lambda l, d: estimate(l, d, spec).time_s
     est = [{d: layer_cost(l, d) for d in DATAFLOWS} for l in layers]
 
     def conv_cost(i: int) -> float:

@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..api import FlexagonPlan, PlanCache, SparseOperand, _refuse_unported
+from ..api import PlanCache, SparseOperand, _refuse_unported
 from ..config import resolve_device
 from ..core.selector import DeviceSpec
 from .ffn import _masked_weight
@@ -38,8 +38,8 @@ __all__ = ["CompressedFFN", "PlannedFFN", "compress_ffn", "sparse_ffn_apply"]
 class PlannedFFN:
     """Plans + packed weights for one token shape (phase-1 output)."""
 
-    plan_in: FlexagonPlan        # x @ w_gate and x @ w_up  (same pattern)
-    plan_out: FlexagonPlan       # h @ w_down
+    plan_in: Any                 # x @ w_gate and x @ w_up  (same pattern)
+    plan_out: Any                # h @ w_down; FlexagonPlan or TiledPlan
     w_gate: SparseOperand
     w_up: SparseOperand
     w_down: SparseOperand
@@ -62,7 +62,8 @@ class CompressedFFN(torch.nn.Module):
     def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor, *, tokens: int, block: int = 128,
                  spec: DeviceSpec = DeviceSpec(), backend=None, policy=None,
-                 device=None, plan_cache: Optional[PlanCache] = None,
+                 device=None, memory_budget=None,
+                 plan_cache: Optional[PlanCache] = None,
                  max_shapes: Optional[int] = None,
                  verify: Optional[bool] = None):
         super().__init__()
@@ -74,6 +75,7 @@ class CompressedFFN(torch.nn.Module):
         self.spec = spec
         self.backend = backend                  # registry name / instance
         self.policy = policy                    # SelectionPolicy / name
+        self.memory_budget = memory_budget      # repro_torch.memory budget
         self.verify = verify                    # plan-build verification gate
         self.tokens = tokens
         self.plan_cache = plan_cache if plan_cache is not None \
@@ -118,7 +120,8 @@ class CompressedFFN(torch.nn.Module):
         d, f = wg.shape
         bs = (self.block, self.block, self.block)
         kw = dict(block_shape=bs, backend=self.backend, policy=self.policy,
-                  device=self.device, verify=self.verify)
+                  device=self.device, memory_budget=self.memory_budget,
+                  verify=self.verify)
         plan_in = self.plan_cache.get((tokens, d), wg, **kw)
         plan_out = self.plan_cache.get((tokens, f), wd, **kw)
         entry = PlannedFFN(plan_in, plan_out,
@@ -178,10 +181,12 @@ def compress_ffn(ffn_params: Dict[str, Any], *, tokens: int,
     "block_mask"}`` of tensors (see :func:`repro_torch.convert.
     ffn_params_from_jax`).  ``backend``/``policy`` parameterize the plan
     API's execution substrate and selection strategy; ``device=None``
-    resolves to the card.  ``memory_budget``/``mesh``/``partition`` are not
-    ported yet and raise.
+    resolves to the card.  ``memory_budget`` auto-tiles over-budget
+    matmuls (see :mod:`repro_torch.memory`).  ``mesh``/``partition`` and
+    ``verify=True`` (also through ``REPRO_VERIFY=1``) are not ported yet
+    and raise.
     """
-    _refuse_unported(memory_budget, mesh, partition)
+    _refuse_unported(mesh, partition, verify)
     if "block_mask" not in ffn_params:
         raise ValueError("FFN is not block-pruned (no 'block_mask')")
     dev = resolve_device(device)
@@ -194,7 +199,8 @@ def compress_ffn(ffn_params: Dict[str, Any], *, tokens: int,
     return CompressedFFN(masked("w_gate", mask), masked("w_up", mask),
                          masked("w_down", mask.T), tokens=tokens,
                          block=block, spec=spec, backend=backend,
-                         policy=policy, device=dev, plan_cache=plan_cache,
+                         policy=policy, device=dev,
+                         memory_budget=memory_budget, plan_cache=plan_cache,
                          max_shapes=max_shapes, verify=verify)
 
 

@@ -139,9 +139,14 @@ class ServeEngine:
         ps["backend"] = (backend if isinstance(backend, str)
                          else getattr(backend, "name", None)) or "reference"
         ps["plan_cache"] = copy.deepcopy(self.sparse_ffn.cache_stats)
+        # selection-policy telemetry (autotune hit/miss/measurement
+        # counters), deep-copied: the policy owns the live dict
         pol = self.sparse_ffn.policy
         if pol is not None:
-            ps["policy"] = {"name": getattr(pol, "name", str(pol))}
+            pol_stats = getattr(pol, "stats", None)
+            ps["policy"] = (copy.deepcopy(pol_stats)
+                            if isinstance(pol_stats, dict)
+                            else {"name": str(pol)})
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request):

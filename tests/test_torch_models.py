@@ -37,6 +37,14 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 
+
+@pytest.fixture(autouse=True)
+def _no_verify(monkeypatch):
+    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
+    # REPRO_VERIFY=1 raise, so these tests plan with verification off
+    monkeypatch.setenv("REPRO_VERIFY", "0")
+
+
 ARCH = "granite-moe-1b-a400m"
 
 

@@ -28,6 +28,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import stream as tks
 
+
+@pytest.fixture(autouse=True)
+def _no_verify(monkeypatch):
+    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
+    # REPRO_VERIFY=1 raise, so these tests plan with verification off
+    monkeypatch.setenv("REPRO_VERIFY", "0")
+
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -188,5 +196,13 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 
 def test_package_surface():
+    from repro_torch.api import FlexagonPipeline
+    from repro_torch.memory import PAPER_BUDGET, MemoryBudget, TiledPlan
+
     assert repro_torch.flexagon_plan is flexagon_plan
-    assert {"reference", "cuda"} <= set(repro_torch.available_backends())
+    assert {"reference", "cuda", "simulator"} <= set(
+        repro_torch.available_backends())
+    assert repro_torch.FlexagonPipeline is FlexagonPipeline
+    assert repro_torch.MemoryBudget is MemoryBudget
+    assert repro_torch.PAPER_BUDGET is PAPER_BUDGET
+    assert repro_torch.TiledPlan is TiledPlan

@@ -19,6 +19,14 @@ from repro_torch.models import build_model
 from repro_torch.models import moe as tmoe
 from repro_torch.serve import Request, ServeEngine
 
+
+@pytest.fixture(autouse=True)
+def _no_verify(monkeypatch):
+    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
+    # REPRO_VERIFY=1 raise, so these tests plan with verification off
+    monkeypatch.setenv("REPRO_VERIFY", "0")
+
+
 ARCH = "granite-moe-1b-a400m"
 
 
@@ -130,6 +138,32 @@ def test_sparse_ffn_planned_at_admission():
     assert eng.stats["plan_hits"] == comp.plan_hits >= 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.verify_plans()
+
+
+def test_engine_stats_copy_the_policy_stats():
+    """``stats["policy"]`` is a deep copy of the FFN policy's ``stats``, as
+    in the JAX engine: autotune's counters, not only its name."""
+    from repro_torch import compress_ffn
+    from repro_torch.backends import AutotunePolicy
+
+    model = build_model(_cfg("sort"), device="cpu")
+    params = model.init(seed=0)
+    rng = np.random.default_rng(4)
+    fparams = {name: {"w": torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32))}
+        for name, shape in (("w_gate", (64, 96)), ("w_up", (64, 96)),
+                            ("w_down", (96, 64)))}
+    fparams["block_mask"] = torch.as_tensor(
+        (rng.random((4, 6)) > 0.4).astype(np.float32))
+    pol = AutotunePolicy(reps=1)
+    comp = compress_ffn(fparams, tokens=2, block=16, backend="reference",
+                        policy=pol, device="cpu")
+    eng = ServeEngine(model, params, slots=2, max_seq=32, sparse_ffn=comp)
+    stats = eng.stats["policy"]
+    assert stats == pol.stats and stats["name"] == "autotune"
+    assert stats["measurements"] == pol.measurements >= 1
+    stats["hits"] = -1                  # a copy: the policy is untouched
+    assert pol.stats["hits"] != -1 and eng.stats["policy"] == pol.stats
 
 
 #: bound on |port logits - JAX logits| relative to the step's largest
