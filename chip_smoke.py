@@ -73,11 +73,41 @@ launched; each turns the dense escape off and restores it):
     1536) at 4 tokens, ``policy="simulator"`` under ``PAPER_BUDGET`` on the
     cuda backend, within 1e-4 of the fp64 chain.
 
+Phase 13 drives sharded plans (``repro_torch.dist``), escape off, with the
+K1/K2 counts from 0 (both must launch):
+
+13. (a) the serial path, on single-process meshes of the card
+    (``make_virtual_mesh``): Table 6 at block 32 in all six dataflows and
+    the qwen2-1.5b FFN's gate/up and down products at 4 and 128 tokens in
+    ip_m, op_m and gust_m, each at 2 and 4 shards along the dataflow's
+    default axis; then V0 under ``PAPER_BUDGET`` in op_m, gust_m and mixed
+    at 2 and 4 shards, tiling inside each shard.  Per case: shards, axis,
+    collective, ``ici_bytes``, the K1/K2 launches of one apply (> 0), the
+    error against fp64 and against the unsharded plan (<= 1e-4 each), and
+    the device ms of both on phase 10's timer (5 calls for Table 6, 20
+    else).  Then the device time of one sharded qwen2 gate/up apply at 4
+    tokens by kernel name beside the unsharded plan's, and its padded
+    shard plans against each shard planned alone (op_m at 4 shards, ip_m
+    at 2).
+    (b) the collective path: 2, then 4 ranks (``chip_smoke.py --dist-rank
+    R W DIR``, all on the one card, a gloo group: NCCL refuses two ranks
+    on one device) each build the same ``ShardedPlan`` on a 1-D ``cuda``
+    ``DeviceMesh`` with ``device=None`` (which must resolve to the rank's
+    card) and run the qwen2 gate/up product at 4 tokens in ip_m (axis n),
+    op_m (axis k) and gust_m (axis m), ``sparse_ffn_apply`` of a sharded
+    ``compress_ffn``, then V0 under ``PAPER_BUDGET`` in op_m, gust_m and
+    mixed (tiled and mixed shards).  Per rank: the path (collective), K1/K2
+    launches (> 0 where its shard has work, and > 0 over the ranks of
+    every case: gust_m's row bands leave a 4-token product's one block row
+    to rank 0), the ``dist.collectives`` counter (> 0), and the error
+    against fp64 and against (a)'s serial result (<= 1e-4).  Every rank
+    must exit 0 within its timeout.
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
-``chiprun_out/chip_smoke.json``.  With no CUDA device it exits 2 before
-printing any result.
+``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``).  With
+no CUDA device it exits 2 before printing any result.
 
     python3 chip_smoke.py --sweeps
 
@@ -89,6 +119,11 @@ plain version: K3 first, then K1 and K2) and prints no result lines.
 runs phases 1 and 8 alone (the build, then granite serving with its
 decode-step p50/p99) and prints no result lines: a serving-only run to
 alternate with another tree's in one call.
+
+    python3 chip_smoke.py --dist
+
+runs phases 1 and 13 alone (the build, then sharded plans, serial and
+collective) and prints no result lines.
 """
 from __future__ import annotations
 
@@ -350,25 +385,33 @@ def _rel_err(out, ref) -> float:
                  .clamp_min(1e-30))
 
 
+def _table6_operands(device):
+    """Every Table 6 layer's operands ``{name: (a, b)}`` at block 32, at
+    its published M, N, K and sparsities (from SEED + 1)."""
+    import numpy as np
+
+    from repro_torch.core.workloads import PAPER_LAYERS
+
+    rng = np.random.default_rng(SEED + 1)
+    return {name: _operands(rng, L.m, L.k, L.n, (32, 32, 32), L.density_a,
+                            L.density_b, device)
+            for name, L in PAPER_LAYERS.items()}
+
+
 def table6(device, calls):
     """Every Table 6 layer, six pinned dataflows x2 applies, then auto.
 
     Returns each layer's operands ``{name: (a, b)}``."""
-    import numpy as np
-
     from repro_torch import flexagon_plan, get_backend
     from repro_torch.core.dataflows import DATAFLOWS
     from repro_torch.core.workloads import PAPER_LAYERS
 
     cuda = get_backend("cuda")
     default_threshold = cuda.dense_threshold
-    rng = np.random.default_rng(SEED + 1)
     bs = (32, 32, 32)
-    operands = {}
+    operands = _table6_operands(device)
     for name, L in PAPER_LAYERS.items():
-        a, b = _operands(rng, L.m, L.k, L.n, bs, L.density_a, L.density_b,
-                         device)
-        operands[name] = (a, b)
+        a, b = operands[name]
         ref = a.double() @ b.double()
         worst = 0.0
         cuda.dense_threshold = 2.0            # escape off: kernels only
@@ -1028,6 +1071,485 @@ def pipeline_phase(device, d=QWEN2_D, f=QWEN2_F, block=QWEN2_BLOCK,
             "rel_err_fp64": err}
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+#: shard counts of the serial cases, and the world sizes of the collective
+#: ones (ranks of one process group, all on the one card)
+DIST_SHARDS = (2, 4)
+#: device-time reps of a Table 6 case (phase 10's timer at fewer calls:
+#: 108 sharded and 54 unsharded plans are timed)
+DIST_TABLE6_REPS = 5
+#: calls a rank times per case by CUDA events (after 3 warm-up calls)
+DIST_RANK_REPS = 5
+#: the dataflows of V0 under PAPER_BUDGET on a mesh (tiled, mixed shards)
+DIST_BUDGET_DATAFLOWS = ("op_m", "gust_m", "mixed")
+#: (dataflow, shards) of the sharded qwen2 gate/up applies profiled by
+#: kernel, and measured padded against unpadded shard plans
+DIST_BREAKDOWN = (("op_m", 4), ("ip_m", 2))
+#: each rank's limit: a hung rendezvous fails the run, never hangs it
+RANK_TIMEOUT_S = 240
+#: rank inputs: the qwen2-1.5b FFN's parameters, then its 4-token input
+DIST_SEED = SEED + 5
+
+
+def _dist_inputs(device):
+    """The qwen2 FFN parameters, masked weights and 4-token input that
+    phase 13 and its ranks share (made from DIST_SEED in this order)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(DIST_SEED)
+    params, wg, wu, wd = _qwen2_params(rng, device, QWEN2_D, QWEN2_F,
+                                       QWEN2_BLOCK)
+    x4 = torch.as_tensor(rng.standard_normal((4, QWEN2_D), np.float32),
+                         device=device)
+    return rng, params, (wg, wu, wd), x4
+
+
+def _ffn64(x, ws):
+    import torch
+
+    wg, wu, wd = (w.double() for w in ws)
+    x2 = x.reshape(-1, wg.shape[0]).double()
+    return (torch.nn.functional.silu(x2 @ wg) * (x2 @ wu)) @ wd
+
+
+def _dist_case(label, dataflow, plan, a, b, ref, want, untiled_ms, reps,
+               out):
+    """One sharded plan on the serial path: the K1/K2 launches of one
+    apply, errors against fp64 and the unsharded plan, device ms."""
+    import torch
+
+    from repro_torch import TiledPlan
+
+    k1, k2 = _launches()
+    got = plan.apply(a, b)
+    torch.cuda.synchronize()
+    k1, k2 = (n - m for n, m in zip(_launches(), (k1, k2)))
+    err64, err_u = _rel_err(got, ref), _rel_err(got, want.double())
+    ms, how = _device_ms(lambda: plan.apply(a, b), reps)
+    tiles = [p.n_tiles if isinstance(p, TiledPlan) else 1
+             for p in plan.plans]
+    row = {"case": label, "dataflow": dataflow, "shards": plan.n_shards,
+           "axis": plan.axis, "collective": plan.collective,
+           "ici_bytes": plan.ici_bytes, "path": plan.path,
+           "tiles_per_shard": tiles, "k1": k1, "k2": k2,
+           "rel_err_fp64": err64, "rel_err_unsharded": err_u, "ms": ms,
+           "unsharded_ms": untiled_ms}
+    log(f"dist serial {label:16s} {dataflow:6s} shards={plan.n_shards} "
+        f"axis={plan.axis} collective={plan.collective} "
+        f"ici_bytes={plan.ici_bytes:.0f} K1={k1:3d} K2={k2:3d} rel err "
+        f"fp64 {err64:.2e} unsharded {err_u:.2e} (tol {REL_TOL:g}) "
+        f"ms={ms:.4f} unsharded_ms={untiled_ms:.4f} ({how})"
+        + (f" tiles per shard {tiles}" if max(tiles) > 1 else ""))
+    if plan.path != "serial":
+        raise SystemExit(f"dist {label}/{dataflow}: path {plan.path} on a "
+                         "single-process mesh")
+    if k1 + k2 <= 0:
+        raise SystemExit(f"dist {label}/{dataflow}: no K1/K2 launch")
+    if max(err64, err_u) > REL_TOL:
+        raise SystemExit(f"dist {label}/{dataflow}: error {err64:.2e} / "
+                         f"{err_u:.2e} > {REL_TOL}")
+    out.append(row)
+    return got
+
+
+def _dist_serial(device, workdir):
+    """Phase 13(a): sharded plans on a single-process mesh of the card.
+    Saves the 4-token gate/up products and FFN outputs that the ranks of
+    13(b) hold themselves to."""
+    import numpy as np
+    import torch
+
+    from repro_torch import (PAPER_BUDGET, DistPartition, compress_ffn,
+                             flexagon_plan, sparse_ffn_apply)
+    from repro_torch.core.dataflows import DATAFLOWS
+    from repro_torch.launch.mesh import make_virtual_mesh
+
+    rows = []
+    bs = (32, 32, 32)
+    operands = _table6_operands(device)
+    for name, (a, b) in operands.items():
+        ref = a.double() @ b.double()
+        for dataflow in DATAFLOWS:
+            whole = flexagon_plan(a, b, dataflow=dataflow, block_shape=bs,
+                                  backend="cuda")
+            want = whole.apply(a, b)
+            whole_ms, _ = _device_ms(lambda: whole.apply(a, b),
+                                     DIST_TABLE6_REPS)
+            for shards in DIST_SHARDS:
+                plan = flexagon_plan(a, b, dataflow=dataflow, block_shape=bs,
+                                     backend="cuda",
+                                     mesh=make_virtual_mesh(shards))
+                _dist_case(name, dataflow, plan, a, b, ref, want, whole_ms,
+                           DIST_TABLE6_REPS, rows)
+
+    rng, params, ws, x4 = _dist_inputs(device)
+    wg, _, wd = ws
+    x128 = torch.as_tensor(rng.standard_normal((128, QWEN2_D), np.float32),
+                           device=device)
+    h = {t: torch.as_tensor(rng.standard_normal((t, QWEN2_F), np.float32),
+                            device=device) for t in (4, 128)}
+    bs = (QWEN2_BLOCK,) * 3
+    for tokens, x in ((4, x4), (128, x128)):
+        for part, a, b in (("gate/up", x, wg), ("down", h[tokens], wd)):
+            ref = a.double() @ b.double()
+            for dataflow in ("ip_m", "op_m", "gust_m"):
+                whole = flexagon_plan(a, b, dataflow=dataflow, block_shape=bs,
+                                      backend="cuda")
+                want = whole.apply(a, b)
+                whole_ms, _ = _device_ms(lambda: whole.apply(a, b))
+                for shards in DIST_SHARDS:
+                    plan = flexagon_plan(a, b, dataflow=dataflow,
+                                         block_shape=bs, backend="cuda",
+                                         mesh=make_virtual_mesh(shards))
+                    got = _dist_case(f"qwen2 {part} {tokens}", dataflow,
+                                     plan, a, b, ref, want, whole_ms, REPS,
+                                     rows)
+                    if tokens == 4 and part == "gate/up":
+                        torch.save(got.cpu(), workdir /
+                                   f"serial_{dataflow}_{shards}.pt")
+
+    # tiling inside each shard: V0 under PAPER_BUDGET, saved for 13(b)
+    a, b = operands["V0"]
+    ref = a.double() @ b.double()
+    for dataflow in DIST_BUDGET_DATAFLOWS:
+        whole = flexagon_plan(a, b, dataflow=dataflow, block_shape=(32,) * 3,
+                              backend="cuda", memory_budget=PAPER_BUDGET)
+        want = whole.apply(a, b)
+        whole_ms, _ = _device_ms(lambda: whole.apply(a, b))
+        for shards in DIST_SHARDS:
+            plan = flexagon_plan(a, b, dataflow=dataflow,
+                                 block_shape=(32,) * 3, backend="cuda",
+                                 memory_budget=PAPER_BUDGET,
+                                 partition=DistPartition(shards=shards))
+            got = _dist_case("V0 PAPER_BUDGET", dataflow, plan, a, b, ref,
+                             want, whole_ms, REPS, rows)
+            torch.save(got.cpu(), workdir / f"v0_{dataflow}_{shards}.pt")
+
+    # the sharded FFN at 4 tokens, on the serial path, for 13(b)
+    for shards in DIST_SHARDS:
+        comp = compress_ffn(params, tokens=4, block=QWEN2_BLOCK,
+                            backend="cuda", mesh=make_virtual_mesh(shards))
+        y = sparse_ffn_apply(comp, x4.reshape(1, 4, QWEN2_D))
+        err = _rel_err(y.reshape(4, -1), _ffn64(x4, ws))
+        log(f"dist serial qwen2 ffn tokens=4 shards={shards}: plan_in "
+            f"{comp.dataflow_in} plan_out {comp.dataflow_out}, rel err "
+            f"fp64 {err:.2e} (tol {REL_TOL:g})")
+        if err > REL_TOL:
+            raise SystemExit(f"dist serial ffn shards={shards}: error "
+                             f"{err:.2e}")
+        torch.save(y.cpu(), workdir / f"serial_ffn_{shards}.pt")
+    return rows
+
+
+def _has_work(plan):
+    """Does a shard's plan (a FlexagonPlan or a TiledPlan) have an
+    effectual block product?  (A shard that holds only the padding of the
+    grid launches nothing.)"""
+    from repro_torch import TiledPlan
+
+    if isinstance(plan, TiledPlan):
+        return any(_has_work(p) for p in plan.plans)
+    ip = plan.index_plan
+    if hasattr(ip, "npairs"):
+        return int(ip.npairs.sum()) > 0
+    return int(ip.seg_ptr[-1]) > 0
+
+
+def _kernel_name(name):
+    """A device event's short name: no return type, namespace, template
+    or argument list (``stream_dest_kernel``, ``Memcpy DtoD``)."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("<")[0].split("(")[0].split("::")[-1].strip()
+
+
+def _by_kernel(fn, reps=REPS, top=8):
+    """Device time (ms) of one call of ``fn`` by kernel name: ``reps``
+    calls profiled, each in its ``timed`` range as ``_device_ms`` does,
+    and the call whose total is the median of those the profiler saw
+    (it now and then drops a call's events).  Returns the ``top`` largest
+    as (name, launches, ms) and that call's total."""
+    import statistics
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        for _ in range(reps):
+            with record_function("timed"):
+                fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    windows = [e.time_range for e in device if e.name == "timed"]
+    calls = [[e for e in device if e.name != "timed"
+              and w.start <= e.time_range.start <= w.end] for w in windows]
+    calls = [c for c in calls if c]
+    totals = [sum(e.device_time_total for e in c) for c in calls]
+    call = calls[totals.index(statistics.median_low(totals))]
+    by_name, launches = Counter(), Counter()
+    for e in call:
+        name = _kernel_name(e.name)
+        by_name[name] += e.device_time_total / 1e3
+        launches[name] += 1
+    return ([(k, launches[k], v) for k, v in by_name.most_common(top)],
+            sum(by_name.values()))
+
+
+def _dist_breakdown(device, rows):
+    """Where a sharded qwen2 gate/up apply at 4 tokens spends its device
+    time, beside the unsharded plan's (by kernel name, the median call); and
+    the padded shard plans' applies against each shard planned alone
+    (unpadded) on the same contiguous shard operands, and against each
+    shard planned alone at its operands' real extent."""
+    import torch
+
+    from repro_torch import flexagon_plan
+    from repro_torch.launch.mesh import make_virtual_mesh
+
+    _, _, ws, x4 = _dist_inputs(device)
+    a, b = x4, ws[0]
+    bs = (QWEN2_BLOCK,) * 3
+    out = {}
+    for dataflow, shards in DIST_BREAKDOWN:
+        whole = flexagon_plan(a, b, dataflow=dataflow, block_shape=bs,
+                              backend="cuda")
+        plan = flexagon_plan(a, b, dataflow=dataflow, block_shape=bs,
+                             backend="cuda", mesh=make_virtual_mesh(shards))
+        key = f"qwen2 gate/up 4 {dataflow} shards={shards}"
+        for label, fn in (("sharded", lambda: plan.apply(a, b)),
+                          ("unsharded", lambda: whole.apply(a, b))):
+            kernels, total = _by_kernel(fn)
+            log(f"dist breakdown {key} {label} one apply: {total:.4f} ms "
+                "of device time (the median of 20 calls); by kernel "
+                + ", ".join(f"{k} x{c} {v:.4f}" for k, c, v in kernels))
+            out[f"{key} {label}"] = {"total_ms": total, "kernels": kernels}
+        mp, kp, np_ = plan.padded_grid
+        a_d = torch.nn.functional.pad(a, (0, kp * bs[1] - a.shape[1],
+                                          0, mp * bs[0] - a.shape[0]))
+        b_d = torch.nn.functional.pad(b, (0, np_ * bs[2] - b.shape[1],
+                                          0, kp * bs[1] - b.shape[0]))
+        sl = [(a_d[t.i0 * bs[0]: t.i1 * bs[0],
+                   t.k0 * bs[1]: t.k1 * bs[1]].contiguous(),
+               b_d[t.k0 * bs[1]: t.k1 * bs[1],
+                   t.j0 * bs[2]: t.j1 * bs[2]].contiguous())
+              for t in plan.tiles]
+        alone = [flexagon_plan(x, y, dataflow=dataflow, block_shape=bs,
+                               backend="cuda") for x, y in sl]
+        # the same shards cut to the operands' real extents (a 4-token
+        # shard has 4 rows, not a padded block's 128)
+        m, k = a.shape
+        n = b.shape[1]
+        sl_valid = [(a[t.i0 * bs[0]: min(t.i1 * bs[0], m),
+                       t.k0 * bs[1]: min(t.k1 * bs[1], k)].contiguous(),
+                     b[t.k0 * bs[1]: min(t.k1 * bs[1], k),
+                       t.j0 * bs[2]: min(t.j1 * bs[2], n)].contiguous())
+                    for t in plan.tiles]
+        valid = [(flexagon_plan(x, y, dataflow=dataflow, block_shape=bs,
+                                backend="cuda"), x, y)
+                 for x, y in sl_valid if x.numel() and y.numel()]
+        padded_ms, _ = _device_ms(
+            lambda: [p.apply(x, y) for p, (x, y) in zip(plan.plans, sl)])
+        alone_ms, _ = _device_ms(
+            lambda: [p.apply(x, y) for p, (x, y) in zip(alone, sl)])
+        valid_ms, _ = _device_ms(lambda: [p.apply(x, y) for p, x, y in valid])
+        log(f"dist padding {key}: {shards} padded shard plans "
+            f"{padded_ms:.4f} ms, each shard planned alone {alone_ms:.4f} "
+            f"ms (device ms, contiguous shard operands padded to whole "
+            f"blocks); cut to the real extents {valid_ms:.4f} ms")
+        out[f"{key} padding"] = {"padded_ms": padded_ms,
+                                 "alone_ms": alone_ms, "valid_ms": valid_ms}
+    rows.append(out)
+
+
+def dist_rank(rank, world, workdir, device):
+    """One rank of phase 13(b) (``chip_smoke.py --dist-rank R W DIR``):
+    the qwen2 gate/up product at 4 tokens in ip_m, op_m and gust_m, a
+    sharded ``compress_ffn``, then V0 under PAPER_BUDGET (tiled and mixed
+    shards), on a 1-D ``cuda`` DeviceMesh over a gloo group whose ranks
+    share the one card; every plan takes ``device=None``, which must
+    resolve to this rank's card.  Writes its rows to ``DIR/rank{R}.json``
+    and exits non-zero on any failed gate."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import (PAPER_BUDGET, compress_ffn, flexagon_plan, obs,
+                             sparse_ffn_apply)
+
+    workdir = Path(workdir)
+    # gloo: NCCL refuses two ranks of one communicator on one card, and
+    # gloo's all_reduce takes CUDA tensors
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("shards",))
+        _, params, ws, x4 = _dist_inputs(device)
+        reg = obs.get_registry()
+        rows = []
+
+        def case(label, fn, plans, ref, serial):
+            paths = {p.path for p in plans}
+            devices = sorted({str(p.device) for p in plans})
+            work = any(_has_work(p.plans[rank]) for p in plans)
+            before = reg.value("dist.collectives")
+            _reset_launches()
+            got = fn()
+            torch.cuda.synchronize()
+            k1, k2 = _launches()
+            coll = reg.value("dist.collectives") - before
+            err64 = _rel_err(got.reshape(ref.shape), ref)
+            err_s = _rel_err(got.reshape(ref.shape),
+                             serial.to(device).reshape(ref.shape).double())
+            # every rank times the same calls, so the merges line up; the
+            # time holds the gloo all_reduce and its host copies
+            events_ms = _events_ms(fn, DIST_RANK_REPS)
+            row = {"world": world, "rank": rank, "case": label,
+                   "paths": sorted(paths), "devices": devices,
+                   "work": work, "k1": k1, "k2": k2,
+                   "collectives": coll, "rel_err_fp64": err64,
+                   "rel_err_serial": err_s, "events_ms": events_ms}
+            print(f"dist collective world={world} rank={rank} {label:7s} "
+                  f"path={'/'.join(sorted(paths))} device="
+                  f"{'/'.join(devices)} shard work={work} "
+                  f"K1={k1} K2={k2} "
+                  f"dist.collectives={coll:.0f} rel err fp64 {err64:.2e} "
+                  f"serial {err_s:.2e} (tol {REL_TOL:g}) events_ms="
+                  f"{events_ms:.4f}", flush=True)
+            rows.append(row)
+
+        with EscapeOff():
+            ref = x4.double() @ ws[0].double()
+            for dataflow in ("ip_m", "op_m", "gust_m"):
+                plan = flexagon_plan(x4, ws[0], dataflow=dataflow,
+                                     block_shape=(QWEN2_BLOCK,) * 3,
+                                     backend="cuda", mesh=mesh)
+                case(dataflow, lambda: plan.apply(x4, ws[0]), [plan], ref,
+                     torch.load(workdir / f"serial_{dataflow}_{world}.pt"))
+            comp = compress_ffn(params, tokens=4, block=QWEN2_BLOCK,
+                                backend="cuda", mesh=mesh)
+            entry = comp.specialize(4)
+            case("ffn", lambda: sparse_ffn_apply(
+                comp, x4.reshape(1, 4, QWEN2_D)),
+                [entry.plan_in, entry.plan_out], _ffn64(x4, ws),
+                torch.load(workdir / f"serial_ffn_{world}.pt"))
+            a, b = _table6_operands(device)["V0"]
+            ref = a.double() @ b.double()
+            for dataflow in DIST_BUDGET_DATAFLOWS:
+                plan = flexagon_plan(a, b, dataflow=dataflow,
+                                     block_shape=(32,) * 3, backend="cuda",
+                                     memory_budget=PAPER_BUDGET, mesh=mesh)
+                case(f"V0 {dataflow}", lambda: plan.apply(a, b), [plan], ref,
+                     torch.load(workdir / f"v0_{dataflow}_{world}.pt"))
+        (workdir / f"rank{rank}.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+    bad = [r for r in rows
+           if r["paths"] != ["collective"] or r["collectives"] <= 0
+           or r["devices"] != [str(device)]
+           or (r["work"] and r["k1"] + r["k2"] <= 0)
+           or max(r["rel_err_fp64"], r["rel_err_serial"]) > REL_TOL]
+    if bad:
+        print(f"dist collective world={world} rank={rank}: failed gates "
+              f"{bad}", flush=True)
+        return 1
+    return 0
+
+
+def _dist_collective(workdir, world):
+    """Phase 13(b) at one world size: ``world`` ranks on the one card;
+    every rank must exit 0 within RANK_TIMEOUT_S."""
+    (workdir / "store").unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+         str(r), str(world), str(workdir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        outs.append(f"timed out after {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("dist collective"):
+                log(line)
+        if p.returncode != 0:
+            log(text[-4000:])
+            raise SystemExit(f"dist collective world={world}: rank {r} "
+                             f"exited {p.returncode}")
+    if len(outs) < world:
+        raise SystemExit(f"dist collective world={world}: a rank timed out")
+    rows = []
+    for r in range(world):
+        rows += json.loads((workdir / f"rank{r}.json").read_text())
+    for label in dict.fromkeys(row["case"] for row in rows):
+        if sum(row["k1"] + row["k2"] for row in rows
+               if row["case"] == label) <= 0:
+            raise SystemExit(f"dist collective world={world} {label}: no "
+                             "rank launched K1/K2")
+    return rows
+
+
+def dist_phase(device):
+    """Phase 13: sharded plans.  (a) the serial path on single-process
+    meshes of the card: Table 6 at block 32 in all six dataflows, the
+    qwen2-1.5b FFN's gate/up and down products at 4 and 128 tokens in
+    ip_m, op_m and gust_m, each at 2 and 4 shards; V0 under PAPER_BUDGET
+    in op_m, gust_m and mixed at 2 and 4 shards, tiling inside each shard;
+    two profiled qwen2 applies.  (b) the collective path: 2, then 4 gloo
+    ranks on the card, each running its own shard and merging with one
+    all_reduce; a rank whose shard has work must launch K1/K2, and so must
+    some rank of every case.  K1/K2 launch counts run from 0 over (a)'s
+    cases; both must launch."""
+    import shutil
+
+    from repro_torch import obs
+
+    t0 = time.perf_counter()
+    workdir = OUT_DIR / "dist"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    reg = obs.get_registry()
+    coll0 = reg.value("dist.collectives")
+    _reset_launches()
+    try:
+        with EscapeOff():
+            serial = _dist_serial(device, workdir)
+            k1, k2 = _launches()
+            breakdown = []
+            _dist_breakdown(device, breakdown)
+        if reg.value("dist.collectives") != coll0:
+            raise SystemExit("dist serial: a collective ran in one process")
+        t_serial = time.perf_counter() - t0
+        collective = []
+        for world in DIST_SHARDS:
+            collective += _dist_collective(workdir, world)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"dist-path kernel launches (serial path, one apply per case, then "
+        f"timing): stream_spmm {k1}, stream_panel_spmm {k2}")
+    if min(k1, k2) <= 0:
+        raise SystemExit("dist path: K1 or K2 never launched")
+    seconds = time.perf_counter() - t0
+    log(f"phase 13 (dist) took {seconds:.1f} s (serial {t_serial:.1f} s)")
+    return {"serial": serial, "collective": collective, "k1": k1, "k2": k2,
+            "breakdown": breakdown[0], "seconds": seconds}
+
+
 # -- phase 7 -----------------------------------------------------------------
 
 
@@ -1436,11 +1958,20 @@ def main() -> int:
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import stream as ks
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    args = sys.argv[1:]
+    if "--dist-rank" in args:
+        # one rank of phase 13(b), started by dist_phase
+        i = args.index("--dist-rank")
+        device = torch.device("cuda:0")
+        torch.cuda.set_device(device)
+        return dist_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3],
+                         device)
+
     OUT_DIR.mkdir(exist_ok=True)
     _LOG.append(open(OUT_DIR / "chip_smoke.log", "w"))
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
-    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
@@ -1458,6 +1989,11 @@ def main() -> int:
         # phases 1 and 8 alone: the decode step's host-clock latency
         serve_granite(device)
         log(f"serve done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+    if "--dist" in sys.argv[1:]:
+        # phases 1 and 13 alone: sharded plans, serial and collective
+        dist_phase(device)
+        log(f"dist done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
     worst = kernel_sweep(device)
 
@@ -1512,6 +2048,8 @@ def main() -> int:
     policy = policy_phase(device, operands, per_call)
     pipeline = pipeline_phase(device)
     log(f"phases 10-12 done at {time.perf_counter() - t_start:.1f} s")
+    dist = dist_phase(device)
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, t in totals.items():
@@ -1532,7 +2070,7 @@ def main() -> int:
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
-         "pipeline": pipeline}, indent=1))
+         "pipeline": pipeline, "dist": dist}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,9 @@ and the models and serving engine that consume it:
   selection policies;
 - ``repro_torch.memory`` — :class:`MemoryBudget` / :data:`PAPER_BUDGET`
   and :class:`TiledPlan`: budgeted, tiled and mixed-dataflow execution;
+- ``repro_torch.dist`` — :class:`DistPartition` and :class:`ShardedPlan`:
+  plans sharded across a mesh (``repro_torch.launch.mesh``), one shard
+  per rank merged by a ``torch.distributed`` ``all_reduce``;
 - ``repro_torch.models`` — :func:`compress_ffn` / :func:`sparse_ffn_apply`,
   and the decoder LM (:func:`repro_torch.models.build_model`) with dense
   and MoE FFNs, whose ``sort`` dispatch runs the grouped-matmul kernel;
@@ -40,6 +43,7 @@ from .backends import (  # noqa: F401
     register_backend,
 )
 from .memory import PAPER_BUDGET, MemoryBudget, TiledPlan  # noqa: F401
+from .dist import DistPartition, Partitioner, ShardedPlan  # noqa: F401
 from .models import compress_ffn, sparse_ffn_apply  # noqa: F401
 
 __all__ = [
@@ -57,6 +61,9 @@ __all__ = [
     "MemoryBudget",
     "PAPER_BUDGET",
     "TiledPlan",
+    "DistPartition",
+    "Partitioner",
+    "ShardedPlan",
     "compress_ffn",
     "sparse_ffn_apply",
 ]

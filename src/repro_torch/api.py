@@ -37,9 +37,15 @@ phase 1 tiles the operation with the dataflow's scheduler and returns a
 launch per tile.  ``dataflow="mixed"`` makes the dataflow a per-tile
 choice.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh=``/
-``partition=`` (ROADMAP queue 1, item 9), and ``verify=True`` — also the
-``REPRO_VERIFY=1`` default — which needs the plan verifier (item 10).
+``mesh=`` / ``partition=`` add placement: phase 1 partitions the block grid
+across a mesh (:mod:`repro_torch.launch.mesh`) with the dataflow's
+strategy and returns a :class:`repro_torch.dist.ShardedPlan` — same
+``apply`` contract; on a process-group mesh one shard per rank, merged by
+one ``torch.distributed`` ``all_reduce``.
+
+Not ported yet, and raising ``NotImplementedError``: ``verify=True`` —
+also the ``REPRO_VERIFY=1`` default — which needs the plan verifier
+(ROADMAP queue 1, item 10).
 
 ``PHASE1_COUNTERS`` counts selector / layout / index-plan constructions so
 tests (and profiles) can assert that execution never re-plans.
@@ -89,16 +95,11 @@ _BLOCK_CLS = {SparseFormat.BCSR: BlockCSR, SparseFormat.BCSC: BlockCSC}
 _SCALAR_CLS = {SparseFormat.CSR: CSR, SparseFormat.CSC: CSC}
 
 
-def _refuse_unported(mesh=None, partition=None,
-                     verify: Optional[bool] = None) -> None:
-    """The entry points' arguments whose machinery is a later slice.
+def _refuse_unported(verify: Optional[bool] = None) -> None:
+    """Refuse ``verify=``, whose machinery is a later slice.
 
     ``verify=None`` defers to ``REPRO_VERIFY``, so that default raises too:
     a plan is never handed out as verified when nothing verified it."""
-    if mesh is not None or partition is not None:
-        raise NotImplementedError(
-            "mesh= and partition= (sharded plans) are not ported yet: "
-            "ROADMAP queue 1, item 9 (distribution)")
     if resolve_verify(verify):
         raise NotImplementedError(
             "verify=True (or REPRO_VERIFY=1) needs the plan verifier, which "
@@ -502,23 +503,33 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
     ``tile_dataflows`` pins the mixed per-tile choices outright, skipping
     the policy (callers that already ran the selection — ``PlanCache``).
 
-    ``mesh=``/``partition=`` and ``verify=True`` (also through
-    ``REPRO_VERIFY=1``) are not ported yet and raise
-    ``NotImplementedError``.
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh` or a 1-D
+    ``DeviceMesh``) makes placement part of phase 1: the dataflow's
+    :class:`repro_torch.dist.Partitioner` splits the block grid into one
+    sub-problem per shard and a :class:`repro_torch.dist.ShardedPlan` is
+    returned — same ``apply`` contract.  ``partition`` (a
+    :class:`repro_torch.dist.DistPartition`) overrides the strategy's axis
+    or shard count; tiling under ``memory_budget`` then happens *within*
+    each shard.  With ``device=None`` a single-process mesh's plans go to
+    the mesh's device.
+
+    ``verify=True`` (also through ``REPRO_VERIFY=1``) is not ported yet
+    and raises ``NotImplementedError``.
 
     Phase 1 is observable (:mod:`repro_torch.obs`): the build runs under a
     ``plan.phase1`` span with ``plan.select`` / ``plan.schedule`` /
     ``plan.tables`` / ``plan.prepare`` children when ``REPRO_TRACE`` is on,
     and counts into ``plan.builds`` / ``plan.build_s`` / ``policy.select_s``.
     """
-    _refuse_unported(mesh, partition, verify)
-    dev = resolve_device(device)
+    _refuse_unported(verify)
+    dev = _resolve_plan_device(device, mesh)
     t0 = obs.now_ns()
     with obs.span("plan.phase1", dataflow=dataflow) as sp:
         plan = _plan_phase1(a_spec, b_spec, dataflow=dataflow,
                             block_shape=tuple(block_shape), spec=spec,
                             backend=backend, policy=policy, device=dev,
-                            memory_budget=memory_budget,
+                            memory_budget=memory_budget, mesh=mesh,
+                            partition=partition,
                             tile_dataflows=tile_dataflows)
         sp.set(chosen=plan.dataflow, kind=type(plan).__name__,
                backend=plan.backend)
@@ -528,11 +539,26 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
     return plan
 
 
+def _resolve_plan_device(device, mesh) -> torch.device:
+    """``device``, or for ``None`` a single-process mesh's own device, a
+    process-group mesh's device on this rank (``cuda:{current}``), or the
+    card."""
+    from .launch.mesh import Mesh, is_process_mesh, process_mesh_device
+
+    if device is None and isinstance(mesh, Mesh):
+        return mesh.device
+    if device is None and is_process_mesh(mesh):
+        return process_mesh_device(mesh)
+    return resolve_device(device)
+
+
 def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
                  block_shape: Tuple[int, int, int], spec: DeviceSpec,
                  backend: BackendArg, policy: PolicyArg,
                  device: torch.device,
                  memory_budget: Optional[Any] = None,
+                 mesh: Optional[Any] = None,
+                 partition: Optional[Any] = None,
                  tile_dataflows: Optional[Tuple[str, ...]] = None):
     """:func:`flexagon_plan` body (the public wrapper adds the obs seam)."""
     bm, bk, bn = block_shape
@@ -567,13 +593,26 @@ def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
     ctx = SelectionContext(shape=shape, block_shape=block_shape,
                            occ_a=occ_a, occ_b=occ_b, fingerprint=fingerprint,
                            backend=backend_obj, spec=spec, allowed=allowed,
-                           memory_budget=memory_budget, device=device)
+                           memory_budget=memory_budget, mesh=mesh,
+                           partition=partition, device=device)
     if not mixed:
         t_sel = obs.now_ns()
         with obs.span("plan.select", policy=type(policy_obj).__name__):
             dataflow = policy_obj.select(ctx)
         obs.get_registry().histogram("policy.select_s").observe(
             (obs.now_ns() - t_sel) / 1e9)
+
+    if mesh is not None or partition is not None:
+        from .dist.sharded_plan import plan_sharded   # lazy: dist uses api
+
+        sharded = plan_sharded(dataflow=dataflow, occ_a=occ_a, occ_b=occ_b,
+                               shapes=(m, k, n), block_shape=block_shape,
+                               mesh=mesh, partition=partition,
+                               budget=memory_budget, backend=backend_obj,
+                               fingerprint=fingerprint, device=device,
+                               spec=spec, policy=policy_obj)
+        if sharded is not None:
+            return sharded
 
     if memory_budget is not None:
         from .memory.tiled_plan import plan_tiled   # lazy: memory uses api
@@ -687,8 +726,11 @@ class PlanCache:
             partition: Optional[Any] = None,
             verify: Optional[bool] = None):
         # ``verify`` gates plan *builds* only and is not part of the key
-        _refuse_unported(mesh, partition, verify)
-        dev = resolve_device(device)
+        from .dist.partition import mesh_key   # lazy: dist uses api
+        from .launch.mesh import mesh_placement
+
+        _refuse_unported(verify)
+        dev = _resolve_plan_device(device, mesh)
         bm, bk, bn = block_shape
         (m, k), occ_a = _pattern_of(a_spec, (bm, bk))
         (_, n), occ_b = _pattern_of(b_spec, (bk, bn))
@@ -698,7 +740,8 @@ class PlanCache:
                                    tuple(block_shape))
         policy_key: Any = policy_obj.cache_key
         choices: Optional[Tuple[str, ...]] = None
-        if dataflow == "mixed" and memory_budget is not None:
+        if dataflow == "mixed" and memory_budget is not None \
+                and mesh is None and partition is None:
             # mixed identity is the policy's *per-tile choices*: two
             # policies that agree tile-by-tile share one plan.  Memoized so
             # repeat lookups skip the mixed schedule + per-tile selection
@@ -721,14 +764,19 @@ class PlanCache:
             else:
                 self._mixed_choices.move_to_end(memo_key)
             policy_key = ("mixed-tiles",) + choices
+        # the mesh *shape* (device grid + axis names), its kind and process
+        # group, and the partition spec are part of the plan's identity: a
+        # plan sharded for one mesh must never be served for another
         key = (fingerprint, dataflow, backend_obj.name, policy_key, str(dev),
-               memory_budget)
+               memory_budget, mesh_key(mesh), mesh_placement(mesh),
+               partition)
         plan = self._plans.get(key)
         if plan is None:
             plan = flexagon_plan(a_spec, b_spec, dataflow=dataflow,
                                  block_shape=block_shape, spec=self.spec,
                                  backend=backend_obj, policy=policy_obj,
                                  device=dev, memory_budget=memory_budget,
+                                 mesh=mesh, partition=partition,
                                  tile_dataflows=choices, verify=verify)
             self._plans[key] = plan
             self.builds += 1
@@ -791,10 +839,10 @@ class FlexagonPipeline:
         on-chip capacity through the whole chain: the DP prices each
         (layer, dataflow) cell at its *tiled* cost and any over-budget layer
         plans into a :class:`repro_torch.memory.TiledPlan`.
-        ``mesh``/``partition`` are not ported yet and raise.
+        ``mesh``/``partition`` place every layer plan on the mesh (each
+        becomes a :class:`repro_torch.dist.ShardedPlan`).
         """
-        _refuse_unported(mesh, partition, verify=False)
-        dev = resolve_device(device)
+        dev = _resolve_plan_device(device, mesh)
         bm, bk, bn = block_shape
         backend_obj = _resolve_backend(backend)
         policy_obj = get_policy(policy)
@@ -820,7 +868,8 @@ class FlexagonPipeline:
             plan = flexagon_plan((tokens, s.k), w, dataflow=d,
                                  block_shape=block_shape, spec=spec,
                                  backend=backend_obj, device=dev,
-                                 memory_budget=memory_budget)
+                                 memory_budget=memory_budget, mesh=mesh,
+                                 partition=partition)
             plans.append(plan)
             packed.append(plan.pack_b(w))
         conversions = [False] + [

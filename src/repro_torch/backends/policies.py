@@ -14,7 +14,7 @@ This module is that seam:
 
 The JAX package's ``learned`` policy and autotune's persistent ``TuneDB``
 are not ported yet (ROADMAP queue 1, item 11); naming them raises
-``NotImplementedError``, as does a mesh or a partition (item 9).
+``NotImplementedError``.
 
 A policy sees one :class:`SelectionContext` (shape features, occupancy
 bitmaps, fingerprint, the target backend) and returns a dataflow name from
@@ -62,8 +62,11 @@ class SelectionContext:
     :class:`repro_torch.memory.MemoryBudget`, or ``None`` for unbounded)
     makes the choice traffic-aware: policies rank dataflows by what their
     *tiled* execution moves through the L1/L2/DRAM tiers.  ``mesh`` /
-    ``partition`` would make it placement-aware; they are not ported yet
-    (:meth:`require_local` raises).  ``device`` is where a measuring
+    ``partition`` (a :mod:`repro_torch.launch.mesh` mesh and a
+    :class:`repro_torch.dist.DistPartition`) make it placement-aware: each
+    dataflow is priced as its *sharded* execution — slowest shard plus the
+    cross-shard merge over the interconnect tier — so policies rank
+    (dataflow × partition) jointly.  ``device`` is where a measuring
     policy runs its throwaway plans (``None``: the card).
     """
 
@@ -87,13 +90,12 @@ class SelectionContext:
     tile: Optional[Any] = None
     device: Optional[Any] = None
 
-    def require_local(self) -> None:
-        """Raise for a mesh or a partition: sharded selection is not
-        ported yet (ROADMAP queue 1, item 9)."""
-        if self.mesh is not None or self.partition is not None:
-            raise NotImplementedError(
-                "a mesh or a partition (sharded plans) is not ported yet: "
-                "ROADMAP queue 1, item 9 (distribution)")
+    @property
+    def n_shards(self) -> int:
+        """Shard count the (mesh, partition) pair resolves to (1 = local)."""
+        from ..dist.partition import resolve_shards   # lazy: dist uses api
+
+        return resolve_shards(self.mesh, self.partition)
 
 
 class SelectionPolicy(abc.ABC):
@@ -184,7 +186,16 @@ class HeuristicPolicy(SelectionPolicy):
     name = "heuristic"
 
     def select(self, ctx: SelectionContext) -> str:
-        ctx.require_local()
+        shards = ctx.n_shards
+        if shards > 1:
+            from ..memory.traffic import sharded_estimate
+
+            axis = getattr(ctx.partition, "axis", None)
+            return min(ctx.allowed, key=lambda d: (
+                sharded_estimate(ctx.shape, d, shards,
+                                 budget=ctx.memory_budget, spec=ctx.spec,
+                                 occ_a=ctx.occ_a, occ_b=ctx.occ_b,
+                                 axis=axis), d))
         if ctx.memory_budget is not None:
             from ..memory.traffic import tiled_estimate
 
@@ -221,7 +232,16 @@ class SimulatorPolicy(SelectionPolicy):
     def price(self, ctx: SelectionContext) -> Dict[str, float]:
         """Simulated time per allowed dataflow — ``select`` is its argmin."""
         sim = self._oracle()
-        ctx.require_local()
+        shards = ctx.n_shards
+        if shards > 1:
+            from ..memory.traffic import sharded_traffic
+
+            cfg = self._cfg()
+            axis = getattr(ctx.partition, "axis", None)
+            return {d: sharded_traffic(
+                d, ctx.occ_a, ctx.occ_b, ctx.block_shape, shards,
+                budget=ctx.memory_budget, cfg=cfg, axis=axis).time_s(cfg)
+                for d in ctx.allowed}
         if ctx.memory_budget is not None:
             from ..memory.traffic import tiled_traffic
 
@@ -259,8 +279,10 @@ class AutotunePolicy(SelectionPolicy):
     fastest.  On a CUDA device each ``apply`` is timed by a pair of
     ``torch.cuda.Event``\\ s after a synchronize; on the CPU by the wall
     clock.  Results are cached by ``(fingerprint, backend, block_shape,
-    budget, device)``, so a serving loop pays the sweep once per pattern —
-    and repeat selections are deterministic by construction.
+    budget, mesh shape, partition, device)``, so a serving loop pays the
+    sweep once per pattern — and repeat selections are deterministic by
+    construction.  On a process-group mesh every rank measures and all
+    take the first rank's pick, so the ranks plan the same shards.
 
     The cache is **LRU-bounded** (``maxsize``).  ``hits`` / ``misses`` /
     ``measurements`` / ``evictions`` counters mirror the ``PlanCache``
@@ -320,9 +342,13 @@ class AutotunePolicy(SelectionPolicy):
             setattr(backend, attr, value)
 
     def select(self, ctx: SelectionContext) -> str:
-        ctx.require_local()
+        from ..dist.partition import mesh_key   # lazy: dist uses api
+        from ..launch.mesh import mesh_placement
+
         key = (ctx.fingerprint, ctx.backend.name, ctx.block_shape,
-               ctx.memory_budget, str(resolve_device(ctx.device)))
+               ctx.memory_budget, mesh_key(ctx.mesh),
+               mesh_placement(ctx.mesh), ctx.partition,
+               str(resolve_device(ctx.device)))
         hit = self._cache.get(key)
         if hit is not None and hit[0] in ctx.allowed:
             self.hits += 1
@@ -331,6 +357,7 @@ class AutotunePolicy(SelectionPolicy):
             return hit[0]
         self.misses += 1
         choice, knobs, _ = self._measure(ctx)
+        choice, knobs = _first_rank_pick(ctx.mesh, (choice, knobs))
         self._remember(key, (choice, knobs))
         self._apply_knobs(ctx.backend, knobs)
         return choice
@@ -391,15 +418,16 @@ class AutotunePolicy(SelectionPolicy):
                 self._apply_knobs(ctx.backend, combo)
                 tag = ",".join(f"{nm}={combo[nm]}" for nm in names)
                 for d in ctx.allowed:
-                    # with a memory budget the throwaway plan tiles exactly
-                    # like the real one, so the measurement *is* the tiled
-                    # execution
+                    # with a memory budget (or a mesh) the throwaway plan
+                    # tiles and shards exactly like the real one, so the
+                    # measurement *is* the tiled / sharded execution
                     with obs.span("policy.autotune.measure", dataflow=d,
                                   reps=self.reps) as sp:
                         plan = flexagon_plan(
                             a, b, dataflow=d, block_shape=ctx.block_shape,
                             spec=ctx.spec, backend=ctx.backend,
                             device=device, memory_budget=ctx.memory_budget,
+                            mesh=ctx.mesh, partition=ctx.partition,
                             verify=False)
                         best = self._time_plan(plan, a, b)
                         scored[(d, ci)] = best
@@ -423,14 +451,16 @@ class AutotunePolicy(SelectionPolicy):
         """
         from .. import obs
         from ..api import flexagon_plan  # lazy: api imports this module
+        from ..dist.partition import mesh_key   # lazy: dist uses api
+        from ..launch.mesh import mesh_placement
 
-        ctx.require_local()
         candidates = tuple(tuple(c) for c in candidates)
         if not candidates:
             raise ValueError("select_block needs at least one candidate")
         device = resolve_device(ctx.device)
         key = ("block", ctx.fingerprint, ctx.backend.name, candidates,
-               ctx.memory_budget, str(device))
+               ctx.memory_budget, mesh_key(ctx.mesh),
+               mesh_placement(ctx.mesh), ctx.partition, str(device))
         hit = self._cache.get(key)
         if hit is not None:
             self.hits += 1
@@ -447,12 +477,14 @@ class AutotunePolicy(SelectionPolicy):
                 plan = flexagon_plan(a, b, block_shape=cand, spec=ctx.spec,
                                      backend=ctx.backend, device=device,
                                      memory_budget=ctx.memory_budget,
+                                     mesh=ctx.mesh, partition=ctx.partition,
                                      verify=False)
                 t = self._time_plan(plan, a, b)
                 timings["x".join(map(str, cand))] = t
                 sp.set(best_s=t)
         best = min(candidates,
                    key=lambda c: (timings["x".join(map(str, c))], c))
+        best = _first_rank_pick(ctx.mesh, best)
         self._remember(key, best)
         return best
 
@@ -463,6 +495,23 @@ class AutotunePolicy(SelectionPolicy):
         # fall back to the analytical (tiled, if bounded) estimate
         return SelectionPolicy.layer_cost(self, shape, dataflow, spec,
                                           memory_budget)
+
+
+def _first_rank_pick(mesh, pick):
+    """On a process-group mesh every rank measured on its own device, and
+    their picks may differ; all take the mesh's first rank's, so that the
+    ranks build the same sharded plan.  Elsewhere ``pick`` as it is."""
+    from ..launch.mesh import is_process_mesh
+
+    if not is_process_mesh(mesh):
+        return pick
+    import torch.distributed as dist
+
+    group = mesh.get_group()
+    box = [pick]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
 
 
 def _values_on_pattern(rng: np.random.Generator, occ: np.ndarray,

@@ -15,7 +15,9 @@ that:
   whatever the cycle models priced.  It is never the main path's backend;
 - :meth:`SimulatorBackend.report` returns the full :class:`SimResult`
   (per-phase cycles, on-/off-chip traffic, miss rates) for a plan, or a
-  :class:`repro_torch.memory.traffic.TiledSimReport` for a tiled plan.
+  :class:`repro_torch.memory.traffic.TiledSimReport` for a tiled plan,
+  or a :class:`repro_torch.memory.traffic.ShardedSimReport` (with the
+  interconnect tier) for a sharded one.
 
 Every number it returns equals the JAX package's ``simulator`` backend's on
 the same pattern.
@@ -101,10 +103,17 @@ class SimulatorBackend(ExecutionBackend):
         budget).  Each tile is priced under the dataflow it actually runs,
         so mixed plans report a per-tile dataflow histogram
         (``dataflow_histogram``) and per-group tier traffic (``per_group``).
+        A :class:`repro_torch.dist.ShardedPlan` gets a
+        :class:`repro_torch.memory.traffic.ShardedSimReport`: per-shard
+        tier traffic plus the fourth (interconnect) tier of the cross-shard
+        merge.
         """
+        from ..dist.sharded_plan import ShardedPlan   # lazy: dist uses api
         from ..memory.tiled_plan import TiledPlan     # lazy: memory uses api
-        from ..memory.traffic import plan_traffic
+        from ..memory.traffic import plan_traffic, sharded_plan_traffic
 
+        if isinstance(plan, ShardedPlan):
+            return sharded_plan_traffic(plan, self.cfg, seed=_STATS_SEED)
         if isinstance(plan, TiledPlan):
             return plan_traffic(plan, self.cfg, seed=_STATS_SEED)
         m, k, n = plan.shapes

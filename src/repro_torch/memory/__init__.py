@@ -14,7 +14,8 @@ The memory-hierarchy layer between plans and backends:
   add into one carry in slab order);
 - :mod:`~repro_torch.memory.traffic` — L1/L2/DRAM pricing per tile
   (:class:`TierTraffic`), consumed by the simulator backend's ``report``
-  and by traffic-aware selection policies.
+  and by traffic-aware selection policies; the ``sharded_*`` functions add
+  the interconnect tier of a :class:`repro_torch.dist.ShardedPlan`.
 
 Entry point: ``flexagon_plan(a, b, memory_budget=MemoryBudget(...))``
 auto-tiles whenever the pattern exceeds the budget.
@@ -32,9 +33,10 @@ from .tiled_plan import TiledPlan, mixed_tile_dataflows, plan_tiled
 from .tiling import (GustTileScheduler, IPTileScheduler, MixedTileScheduler,
                      OPTileScheduler, Tile, TileMergePlan, TileScheduler,
                      get_scheduler, schedule)
-from .traffic import (TierTraffic, TiledSimReport, mixed_tile_choices,
-                      plan_traffic, synthetic_occupancy, tiled_estimate,
-                      tiled_traffic)
+from .traffic import (ShardedSimReport, TierTraffic, TiledSimReport,
+                      mixed_tile_choices, plan_traffic, sharded_estimate,
+                      sharded_plan_traffic, sharded_traffic,
+                      synthetic_occupancy, tiled_estimate, tiled_traffic)
 
 __all__ = [
     "MemoryBudget",
@@ -60,4 +62,8 @@ __all__ = [
     "synthetic_occupancy",
     "tiled_estimate",
     "tiled_traffic",
+    "ShardedSimReport",
+    "sharded_traffic",
+    "sharded_plan_traffic",
+    "sharded_estimate",
 ]

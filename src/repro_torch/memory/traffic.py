@@ -27,10 +27,12 @@ Two entry points share the aggregation:
 only shape features exist (the ``plan_network`` DP): per-tile
 :func:`repro_torch.core.selector.estimate` sums, plus merge traffic.
 
+:func:`sharded_traffic` / :func:`sharded_plan_traffic` /
+:func:`sharded_estimate` price a *sharded* execution: per-shard tiers plus
+the fourth, interconnect tier that carries the cross-shard merge.
+
 The module is the JAX package's ``repro.memory.traffic`` with the
-roofline's ``DeviceSpec`` in place of ``TPUSpec``.  Pricing a *sharded*
-execution (``sharded_traffic`` / ``sharded_estimate``) needs ``dist/`` and
-comes with it (ROADMAP queue 1, item 9).
+roofline's ``DeviceSpec`` in place of ``TPUSpec``.
 """
 from __future__ import annotations
 
@@ -49,9 +51,13 @@ from .tiling import TileMergePlan, schedule
 __all__ = [
     "TierTraffic",
     "TiledSimReport",
+    "ShardedSimReport",
     "tiled_traffic",
     "plan_traffic",
     "tiled_estimate",
+    "sharded_traffic",
+    "sharded_plan_traffic",
+    "sharded_estimate",
     "mixed_tile_choices",
     "synthetic_occupancy",
 ]
@@ -341,3 +347,172 @@ def tiled_estimate(shape: LayerShape, dataflow: str, budget: MemoryBudget,
         bytes_b=agg.bytes_b, bytes_c=agg.bytes_c,
         bytes_psum=agg.bytes_psum + merge, compute_s=agg.compute_s,
         memory_s=agg.memory_s + merge / spec.hbm_bw)
+
+
+@dataclasses.dataclass
+class ShardedSimReport:
+    """``SimulatorBackend.report`` result for a sharded plan.
+
+    ``per_shard`` holds one :class:`TierTraffic` per mesh shard; ``traffic``
+    aggregates them with the interconnect tier (shards run in parallel, so
+    aggregate cycles take the slowest shard plus the merge collective)."""
+
+    dataflow: str
+    axis: str
+    shards: int
+    per_shard: List
+    traffic: TierTraffic
+
+    @property
+    def cycles(self) -> float:
+        return self.traffic.cycles
+
+    @property
+    def ici_bytes(self) -> float:
+        return self.traffic.ici_bytes
+
+
+def _shard_tier(dataflow: str, tile, occ_at: np.ndarray, occ_bt: np.ndarray,
+                block_shape: Tuple[int, int, int],
+                budget: Optional[MemoryBudget],
+                cfg: AcceleratorConfig, seed: int,
+                tile_dataflows: Optional[Sequence[str]] = None
+                ) -> TierTraffic:
+    """One shard's tier traffic: tiled under its budget, single-tile else.
+
+    ``tile_dataflows`` pins the shard's per-tile choices (mixed sharded
+    plans price what each tile *actually* runs, not the argmin re-derive).
+    """
+    if budget is not None:
+        return tiled_traffic(dataflow, occ_at, occ_bt, block_shape, budget,
+                             cfg, seed, tile_dataflows=tile_dataflows)
+    bm, bk, bn = block_shape
+    dims = ((tile.i1 - tile.i0) * bm, (tile.k1 - tile.k0) * bk,
+            (tile.j1 - tile.j0) * bn)
+    res = _tile_result(dataflow, dims, _occ_density(occ_at),
+                       _occ_density(occ_bt), cfg, seed)
+    return _aggregate(dataflow, [res], 0.0, cfg)
+
+
+def _aggregate_shards(per_shard: List[TierTraffic], ici: float,
+                      cfg: AcceleratorConfig) -> TierTraffic:
+    return TierTraffic(
+        l1_bytes=float(sum(t.l1_bytes for t in per_shard)),
+        l2_bytes=float(sum(t.l2_bytes for t in per_shard)),
+        dram_bytes=float(sum(t.dram_bytes for t in per_shard)),
+        merge_bytes=float(sum(t.merge_bytes for t in per_shard)),
+        cycles=float(max(t.cycles for t in per_shard)
+                     + ici / cfg.ici_bytes_per_cycle),
+        tiles=int(sum(t.tiles for t in per_shard)),
+        ici_bytes=float(ici))
+
+
+def sharded_traffic(dataflow: str, occ_a: np.ndarray, occ_b: np.ndarray,
+                    block_shape: Tuple[int, int, int], n_shards: int,
+                    budget: Optional[MemoryBudget] = None,
+                    cfg: AcceleratorConfig = PAPER_CONFIG, seed: int = 0,
+                    axis: Optional[str] = None) -> TierTraffic:
+    """Partition ``dataflow`` over ``n_shards`` and price the shard ensemble.
+
+    The fourth (interconnect) tier carries the cross-shard merge: k-slab
+    partitions all-reduce their partial C over the mesh; disjoint-output
+    partitions move nothing.  Shards run in parallel, so cycles are the
+    slowest shard's plus the collective — what mesh-aware selection
+    policies rank (dataflow × partition) candidates by.
+    """
+    from ..dist.partition import Partitioner, merge_ici_bytes  # lazy: no cycle
+
+    if n_shards <= 1:
+        if budget is not None:
+            return tiled_traffic(dataflow, occ_a, occ_b, block_shape, budget,
+                                 cfg, seed)
+        from .tiling import Tile
+
+        mb, kb = occ_a.shape
+        nb = occ_b.shape[1]
+        return _shard_tier(dataflow, Tile(0, mb, 0, kb, 0, nb), occ_a, occ_b,
+                           block_shape, None, cfg, seed)
+    part = Partitioner(dataflow, axis=axis, shards=n_shards)
+    per_shard = [
+        _shard_tier(dataflow, tile, occ_at, occ_bt, block_shape, budget,
+                    cfg, seed)
+        for tile, occ_at, occ_bt in part.shard_bitmaps(occ_a, occ_b,
+                                                       n_shards)]
+    dt = budget.dtype_bytes if budget is not None else 4
+    c_bytes = output_bytes(occ_a, occ_b,
+                           (block_shape[0], block_shape[2]), dt)
+    ici = merge_ici_bytes(part.axis, n_shards, c_bytes)
+    return _aggregate_shards(per_shard, ici, cfg)
+
+
+def sharded_plan_traffic(plan, cfg: AcceleratorConfig = PAPER_CONFIG,
+                         seed: int = 0) -> ShardedSimReport:
+    """Per-shard tier traffic + interconnect aggregation for a built
+    :class:`repro_torch.dist.ShardedPlan` (the simulator backend's ``report``)."""
+    from ..dist.partition import Partitioner   # lazy: dist imports memory
+
+    # re-derive the shard slices through the partitioner so they are
+    # zero-padded to the uniform shard extents, exactly as plan_sharded
+    # built them (raw bitmap slicing would hand the tile schedulers
+    # zero-size grids for padding-only shards)
+    part = Partitioner(plan.dataflow, axis=plan.axis, shards=plan.n_shards)
+    shard_choices: List[Optional[Tuple[str, ...]]] = [None] * plan.n_shards
+    if plan.dataflow == "mixed":
+        # each shard's per-tile choices come from its built sub-plan —
+        # price what the tiles actually run, never the argmin re-derive
+        shard_choices = [
+            tuple(getattr(sub, "tile_dataflows", ()) or (sub.dataflow,))
+            for sub in plan.plans]
+    per_shard = [
+        _shard_tier(plan.dataflow, tile, occ_at, occ_bt, plan.block_shape,
+                    plan.budget, cfg, seed, tile_dataflows=choices)
+        for (tile, occ_at, occ_bt), choices in zip(
+            part.shard_bitmaps(plan.occ_a, plan.occ_b, plan.n_shards),
+            shard_choices)]
+    return ShardedSimReport(
+        dataflow=plan.dataflow, axis=plan.axis, shards=plan.n_shards,
+        per_shard=per_shard,
+        traffic=_aggregate_shards(per_shard, float(plan.ici_bytes), cfg))
+
+
+def sharded_estimate(shape: LayerShape, dataflow: str, n_shards: int,
+                     budget: Optional[MemoryBudget] = None,
+                     spec: Optional[DeviceSpec] = None,
+                     occ_a: Optional[np.ndarray] = None,
+                     occ_b: Optional[np.ndarray] = None,
+                     axis: Optional[str] = None) -> float:
+    """Analytic (roofline) seconds for the sharded execution.
+
+    Shards run in parallel — the wall clock is the slowest shard's roofline
+    time plus the cross-shard merge over the ``spec.ici_bw`` interconnect.
+    The heuristic policy's mesh-aware oracle.
+    """
+    from ..dist.partition import Partitioner, merge_ici_bytes  # lazy
+
+    spec = spec or DeviceSpec()
+    mb, kb, nb = shape.grid
+    if occ_a is None:
+        occ_a = synthetic_occupancy((mb, kb), shape.density_a)
+    if occ_b is None:
+        occ_b = synthetic_occupancy((kb, nb), shape.density_b, seed=1)
+    if n_shards <= 1:
+        est = tiled_estimate(shape, dataflow, budget, spec, occ_a, occ_b) \
+            if budget is not None else estimate(shape, dataflow, spec)
+        return est.time_s
+    part = Partitioner(dataflow, axis=axis, shards=n_shards)
+    bm, bk, bn = shape.block
+    worst = 0.0
+    for tile, occ_at, occ_bt in part.shard_bitmaps(occ_a, occ_b, n_shards):
+        sub = LayerShape(m=(tile.i1 - tile.i0) * bm,
+                         k=(tile.k1 - tile.k0) * bk,
+                         n=(tile.j1 - tile.j0) * bn,
+                         density_a=_occ_density(occ_at),
+                         density_b=_occ_density(occ_bt),
+                         block=shape.block)
+        est = tiled_estimate(sub, dataflow, budget, spec, occ_at, occ_bt) \
+            if budget is not None else estimate(sub, dataflow, spec)
+        worst = max(worst, est.time_s)
+    dt = budget.dtype_bytes if budget is not None else 4
+    c_bytes = output_bytes(occ_a, occ_b, (bm, bn), dt)
+    ici = merge_ici_bytes(part.axis, n_shards, c_bytes)
+    return worst + ici / spec.ici_bw

@@ -26,8 +26,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..api import PlanCache, SparseOperand, _refuse_unported
-from ..config import resolve_device
+from ..api import (PlanCache, SparseOperand, _refuse_unported,
+                   _resolve_plan_device)
 from ..core.selector import DeviceSpec
 from .ffn import _masked_weight
 
@@ -39,7 +39,7 @@ class PlannedFFN:
     """Plans + packed weights for one token shape (phase-1 output)."""
 
     plan_in: Any                 # x @ w_gate and x @ w_up  (same pattern)
-    plan_out: Any                # h @ w_down; FlexagonPlan or TiledPlan
+    plan_out: Any                # h @ w_down; Flexagon-, Tiled- or ShardedPlan
     w_gate: SparseOperand
     w_up: SparseOperand
     w_down: SparseOperand
@@ -62,12 +62,12 @@ class CompressedFFN(torch.nn.Module):
     def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor, *, tokens: int, block: int = 128,
                  spec: DeviceSpec = DeviceSpec(), backend=None, policy=None,
-                 device=None, memory_budget=None,
+                 device=None, memory_budget=None, mesh=None, partition=None,
                  plan_cache: Optional[PlanCache] = None,
                  max_shapes: Optional[int] = None,
                  verify: Optional[bool] = None):
         super().__init__()
-        self.device = resolve_device(device)
+        self.device = _resolve_plan_device(device, mesh)
         self.register_buffer("w_gate_dense", w_gate.to(self.device))
         self.register_buffer("w_up_dense", w_up.to(self.device))
         self.register_buffer("w_down_dense", w_down.to(self.device))
@@ -76,6 +76,8 @@ class CompressedFFN(torch.nn.Module):
         self.backend = backend                  # registry name / instance
         self.policy = policy                    # SelectionPolicy / name
         self.memory_budget = memory_budget      # repro_torch.memory budget
+        self.mesh = mesh                        # repro_torch.launch.mesh
+        self.partition = partition              # repro_torch.dist partition
         self.verify = verify                    # plan-build verification gate
         self.tokens = tokens
         self.plan_cache = plan_cache if plan_cache is not None \
@@ -121,6 +123,7 @@ class CompressedFFN(torch.nn.Module):
         bs = (self.block, self.block, self.block)
         kw = dict(block_shape=bs, backend=self.backend, policy=self.policy,
                   device=self.device, memory_budget=self.memory_budget,
+                  mesh=self.mesh, partition=self.partition,
                   verify=self.verify)
         plan_in = self.plan_cache.get((tokens, d), wg, **kw)
         plan_out = self.plan_cache.get((tokens, f), wd, **kw)
@@ -182,14 +185,15 @@ def compress_ffn(ffn_params: Dict[str, Any], *, tokens: int,
     ffn_params_from_jax`).  ``backend``/``policy`` parameterize the plan
     API's execution substrate and selection strategy; ``device=None``
     resolves to the card.  ``memory_budget`` auto-tiles over-budget
-    matmuls (see :mod:`repro_torch.memory`).  ``mesh``/``partition`` and
-    ``verify=True`` (also through ``REPRO_VERIFY=1``) are not ported yet
-    and raise.
+    matmuls (see :mod:`repro_torch.memory`).  ``mesh``/``partition`` shard
+    every matmul's plan across a mesh (see :mod:`repro_torch.dist`).
+    ``verify=True`` (also through ``REPRO_VERIFY=1``) is not ported yet and
+    raises.
     """
-    _refuse_unported(mesh, partition, verify)
+    _refuse_unported(verify)
     if "block_mask" not in ffn_params:
         raise ValueError("FFN is not block-pruned (no 'block_mask')")
-    dev = resolve_device(device)
+    dev = _resolve_plan_device(device, mesh)
     mask = torch.as_tensor(ffn_params["block_mask"], device=dev)
 
     def masked(name, m):
@@ -200,7 +204,8 @@ def compress_ffn(ffn_params: Dict[str, Any], *, tokens: int,
                          masked("w_down", mask.T), tokens=tokens,
                          block=block, spec=spec, backend=backend,
                          policy=policy, device=dev,
-                         memory_budget=memory_budget, plan_cache=plan_cache,
+                         memory_budget=memory_budget, mesh=mesh,
+                         partition=partition, plan_cache=plan_cache,
                          max_shapes=max_shapes, verify=verify)
 
 

@@ -13,7 +13,7 @@ namespace       examples
 ``policy.*``    ``policy.select_s``, ``policy.select_tile_s``,
                 ``policy.measurements``, ``policy.learned_fallbacks``
 ``serve.*``     ``serve.prefills``, ``serve.latency.decode_step_s``
-``dist.*``      ``dist.ici_bytes``
+``dist.*``      ``dist.ici_bytes``, ``dist.collectives``
 ``tier.*``      ``tier.l1_bytes``, ``tier.l2_bytes``, ``tier.dram_bytes``
 ==============  =============================================================
 

@@ -147,6 +147,22 @@ class ServeEngine:
             ps["policy"] = (copy.deepcopy(pol_stats)
                             if isinstance(pol_stats, dict)
                             else {"name": str(pol)})
+        # sharded fused decode: shard / collective telemetry from the
+        # decode-shape plans
+        entry = self.decode_ffn
+        if entry is not None:
+            dist = [p.dist_stats for p in (entry.plan_in, entry.plan_out)
+                    if hasattr(p, "dist_stats")]
+            if dist:
+                ici = float(sum(d["ici_bytes"] for d in dist))
+                ps["dist"] = {
+                    "mesh_shape": dist[0]["mesh_shape"],
+                    "shards": dist[0]["shards"],
+                    "collectives": sum(1 for d in dist
+                                       if d["collective"] == "psum"),
+                    "ici_bytes": ici,
+                }
+                obs.get_registry().gauge("dist.ici_bytes").set(ici)
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request):

@@ -4,8 +4,8 @@ All six dataflows and the dense escape through
 ``flexagon_plan(..., backend="cuda", device="cpu")`` (the kernels' plain
 versions) against JAX ``backend="pallas"`` in interpret mode, with
 ``rtol=atol=1e-4``; the plan-once contract (``PHASE1_COUNTERS``, no
-host→device copy of plan arrays on ``apply``); ``PlanCache``; and the
-arguments whose machinery is not ported yet.
+host→device copy of plan arrays on ``apply``); ``PlanCache``; ``mesh=``
+and ``partition=``; and the arguments whose machinery is not ported yet.
 """
 import numpy as np
 import pytest
@@ -159,14 +159,21 @@ def test_sparse_operand_round_trip():
         np.testing.assert_array_equal(op.todense(), a)
 
 
-@pytest.mark.parametrize("kwarg", [{"mesh": object()},
-                                   {"partition": object()}])
-def test_unported_arguments_raise(kwarg):
+@pytest.mark.parametrize("kwarg", ["mesh", "partition"])
+def test_mesh_and_partition_shard_the_plan(kwarg):
+    """``mesh=`` and ``partition=`` (which raised until the distribution
+    slice) give a sharded plan, from ``flexagon_plan`` and from the
+    cache, whose result is ``a @ b``."""
+    from repro_torch.dist import DistPartition, ShardedPlan
+    from repro_torch.launch.mesh import make_virtual_mesh
+
     a, b = _case(seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flexagon_plan(a, b, block_shape=BS, device="cpu", **kwarg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PlanCache().get(a, b, block_shape=BS, device="cpu", **kwarg)
+    kw = {"mesh": make_virtual_mesh(2, "cpu")} if kwarg == "mesh" \
+        else {"partition": DistPartition(shards=2)}
+    for plan in (flexagon_plan(a, b, block_shape=BS, device="cpu", **kw),
+                 PlanCache().get(a, b, block_shape=BS, device="cpu", **kw)):
+        assert isinstance(plan, ShardedPlan) and plan.n_shards == 2
+        np.testing.assert_allclose(plan.apply(a, b).numpy(), a @ b, **TOL)
 
 
 @pytest.mark.parametrize("policy", ["learned"])

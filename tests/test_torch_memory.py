@@ -486,25 +486,48 @@ def test_traffic_and_estimates_equal(dataflow):
         jax_memory.synthetic_occupancy((7, 9), 0.3), "synthetic")
 
 
-def test_sharded_pricing_raises_naming_item_9():
+def test_sharded_pricing_under_a_budget_matches_jax():
+    """The policies' sharded pricing under a budget (which raised until the
+    distribution slice) prices each dataflow as the JAX package does, and
+    the budgeted sharded plan tiles inside its shards."""
+    from repro import dist as jax_dist
+    from repro.backends.policies import HeuristicPolicy as JaxHeuristic
+    from repro.backends.policies import SelectionContext as JaxContext
+    from repro.backends.policies import SimulatorPolicy as JaxSimulator
+    from repro.launch.mesh import make_virtual_mesh as jax_mesh
+
+    from repro_torch.dist import DistPartition, ShardedPlan
+    from repro_torch.launch.mesh import make_virtual_mesh
+
     a, b = _case(seed=10)
     occ_a, occ_b = block_occupancy(a, BS[:2]), block_occupancy(b, BS[1:])
     shape = LayerShape(48, 64, 40, 0.5, 0.6, BS)
-    # the policies price a mesh-aware choice only with dist/ (item 9)
-    for kw in ({"mesh": object()}, {"partition": object()}):
+    jshape = JaxLayerShape(48, 64, 40, 0.5, 0.6, BS)
+    mine, ref = _budgets(TINY)
+    for kw, jkw in (
+            ({"mesh": make_virtual_mesh(4, "cpu")}, {"mesh": jax_mesh(4)}),
+            ({"partition": DistPartition(axis="k", shards=2)},
+             {"partition": jax_dist.DistPartition(axis="k", shards=2)})):
         ctx = SelectionContext(
             shape=shape, block_shape=BS, occ_a=occ_a, occ_b=occ_b,
             fingerprint="sharded", backend=get_backend("reference"),
-            spec=TPU_NUMBERS, allowed=df.DATAFLOWS,
-            memory_budget=MemoryBudget(*SMALL), device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            SimulatorPolicy().price(ctx)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            HeuristicPolicy().select(ctx)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            flexagon_plan(a, b, block_shape=BS, device="cpu",
-                          memory_budget=MemoryBudget(*SMALL), **kw)
-    assert not any(n.startswith("sharded_") for n in memory.__all__)
+            spec=TPU_NUMBERS, allowed=df.DATAFLOWS, memory_budget=mine,
+            device="cpu", **kw)
+        jctx = JaxContext(
+            shape=jshape, block_shape=BS, occ_a=occ_a, occ_b=occ_b,
+            fingerprint="sharded", backend=jax_get_backend("reference"),
+            spec=TPUSpec(), allowed=df.DATAFLOWS, memory_budget=ref, **jkw)
+        assert ctx.n_shards == jctx.n_shards > 1
+        assert SimulatorPolicy().price(ctx) == JaxSimulator().price(jctx)
+        assert HeuristicPolicy().select(ctx) == JaxHeuristic().select(jctx)
+        plan = flexagon_plan(a, b, block_shape=BS, device="cpu",
+                             memory_budget=mine, spec=TPU_NUMBERS, **kw)
+        assert isinstance(plan, ShardedPlan)
+        assert any(isinstance(p, TiledPlan) for p in plan.plans)
+        np.testing.assert_allclose(plan.apply(a, b).numpy(), a @ b,
+                                   **DENSE_TOL)
+    assert {"sharded_traffic", "sharded_plan_traffic",
+            "sharded_estimate"} <= set(memory.__all__)
 
 
 def test_plan_network_threads_budget_as_jax():

@@ -223,15 +223,33 @@ def test_unported_autotune_parts_raise(monkeypatch):
     monkeypatch.setenv("REPRO_TUNE_DB", "tune.json")
     with pytest.raises(NotImplementedError, match="item 11"):
         AutotunePolicy()
-    monkeypatch.delenv("REPRO_TUNE_DB")
-    ctx = SelectionContext(
-        shape=LayerShape(8, 8, 8, 1.0, 1.0, BS), block_shape=BS,
-        occ_a=np.ones((1, 1), bool), occ_b=np.ones((1, 1), bool),
-        fingerprint="mesh", backend=get_backend("reference"),
-        spec=DeviceSpec(), allowed=DATAFLOWS, mesh=object(), device="cpu")
-    for pol in (AutotunePolicy(), HeuristicPolicy(), SimulatorPolicy()):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pol.select(ctx)
+
+
+def test_policies_select_with_a_mesh():
+    """A mesh in the context (which raised until the distribution slice)
+    makes every policy price the sharded execution: each picks an allowed
+    dataflow, and autotune keys its cache by the mesh's shape."""
+    from repro_torch.core.formats import block_occupancy
+    from repro_torch.launch.mesh import make_virtual_mesh
+
+    rng = np.random.default_rng(3)
+    a = random_sparse_dense(rng, (16, 16), density=0.6, block_shape=BS[:2])
+    b = random_sparse_dense(rng, (16, 16), density=0.6, block_shape=BS[:2])
+    occ_a = block_occupancy(a, BS[:2])
+    occ_b = block_occupancy(b, BS[1:])
+    auto = AutotunePolicy(reps=1)
+    for shards in (2, 4):
+        ctx = SelectionContext(
+            shape=LayerShape(16, 16, 16, float(occ_a.mean()),
+                             float(occ_b.mean()), BS),
+            block_shape=BS, occ_a=occ_a, occ_b=occ_b, fingerprint="mesh",
+            backend=get_backend("reference"), spec=DeviceSpec(),
+            allowed=DATAFLOWS, mesh=make_virtual_mesh(shards, "cpu"),
+            device="cpu")
+        assert ctx.n_shards == shards
+        for pol in (auto, HeuristicPolicy(), SimulatorPolicy()):
+            assert pol.select(ctx) in DATAFLOWS
+    assert auto.measurements == 2 and auto.misses == 2
 
 
 # -- FlexagonPipeline ---------------------------------------------------------
@@ -265,7 +283,7 @@ def test_pipeline_matches_jax(budget, policy):
     np.testing.assert_allclose(out, x @ ws[0] @ ws[1] @ ws[2], **DENSE_TOL)
 
 
-def test_pipeline_pinned_dataflows_and_unported_mesh():
+def test_pipeline_pinned_dataflows_and_mesh():
     rng = np.random.default_rng(12)
     ws = [random_sparse_dense(rng, (16, 24), density=0.5, block_shape=BS[:2]),
           random_sparse_dense(rng, (24, 16), density=0.5, block_shape=BS[:2])]
@@ -276,9 +294,16 @@ def test_pipeline_pinned_dataflows_and_unported_mesh():
     x = rng.standard_normal((8, 16)).astype(np.float32)
     np.testing.assert_allclose(pipe(torch.as_tensor(x)).numpy(),
                                x @ ws[0] @ ws[1], **TOL)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FlexagonPipeline.from_weights(ws, tokens=8, block_shape=BS,
-                                      device="cpu", mesh=object())
+    from repro_torch.dist import ShardedPlan
+    from repro_torch.launch.mesh import make_virtual_mesh
+
+    sharded = FlexagonPipeline.from_weights(
+        ws, tokens=8, block_shape=BS, dataflows=["op_n", "gust_m"],
+        backend="cuda", mesh=make_virtual_mesh(2, "cpu"))
+    assert all(isinstance(p, ShardedPlan) and p.n_shards == 2
+               for p in sharded.plans)
+    np.testing.assert_allclose(sharded(torch.as_tensor(x)).numpy(),
+                               x @ ws[0] @ ws[1], **TOL)
     with pytest.raises(ValueError, match="K="):
         FlexagonPipeline.from_weights([ws[0], ws[0]], tokens=8,
                                       block_shape=BS, device="cpu")

@@ -197,6 +197,7 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 def test_package_surface():
     from repro_torch.api import FlexagonPipeline
+    from repro_torch.dist import DistPartition, Partitioner, ShardedPlan
     from repro_torch.memory import PAPER_BUDGET, MemoryBudget, TiledPlan
 
     assert repro_torch.flexagon_plan is flexagon_plan
@@ -206,3 +207,6 @@ def test_package_surface():
     assert repro_torch.MemoryBudget is MemoryBudget
     assert repro_torch.PAPER_BUDGET is PAPER_BUDGET
     assert repro_torch.TiledPlan is TiledPlan
+    assert repro_torch.DistPartition is DistPartition
+    assert repro_torch.Partitioner is Partitioner
+    assert repro_torch.ShardedPlan is ShardedPlan

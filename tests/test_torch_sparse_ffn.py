@@ -107,13 +107,33 @@ def test_plans_built_once_per_token_shape(jax_params):
     assert comp(x2).shape == x2.shape          # nn.Module call path
 
 
+@pytest.mark.parametrize("kwarg", ["mesh", "partition"])
+def test_sharded_compress_ffn_matches_jax(jax_params, kwarg):
+    """``mesh=`` / ``partition=`` (which raised until the distribution
+    slice) shard every matmul of the FFN; the result matches the JAX
+    package's compressed FFN."""
+    from repro_torch.dist import DistPartition, ShardedPlan
+    from repro_torch.launch.mesh import make_virtual_mesh
+
+    kw = {"mesh": make_virtual_mesh(2, "cpu")} if kwarg == "mesh" \
+        else {"partition": DistPartition(axis="k", shards=2)}
+    jcomp = jax_compress_ffn(jax_params, tokens=16, block=16,
+                             backend="reference")
+    comp = compress_ffn(ffn_params_from_jax(jax_params, device="cpu"),
+                        tokens=16, block=16, backend="cuda", device="cpu",
+                        spec=SPEC, **kw)
+    entry = comp.specialize(16)
+    assert isinstance(entry.plan_in, ShardedPlan)
+    assert isinstance(entry.plan_out, ShardedPlan)
+    assert entry.plan_in.n_shards == entry.plan_out.n_shards == 2
+    x = _x(4)
+    want = np.asarray(jax_sparse_ffn(jcomp, jnp.asarray(x)))
+    np.testing.assert_allclose(
+        sparse_ffn_apply(comp, torch.as_tensor(x)).numpy(), want, **TOL)
+
+
 def test_unported_arguments_raise(jax_params):
     params = ffn_params_from_jax(jax_params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compress_ffn(params, tokens=16, block=16, device="cpu",
-                     partition=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compress_ffn(params, tokens=16, block=16, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compress_ffn(params, tokens=16, block=16, device="cpu", verify=True)
 
