@@ -103,10 +103,36 @@ K1/K2 counts from 0 (both must launch):
     against fp64 and against (a)'s serial result (<= 1e-4).  Every rank
     must exit 0 within its timeout.
 
+Phase 14 drives the analysis and tune layers (``repro_torch.analysis``,
+``repro_torch.tune``) at full width, escape off where plans are applied:
+
+14. (a) plans built with ``verify=True`` through the entry points: Table 6
+    at block 32 in six dataflows, V0 under ``PAPER_BUDGET`` in six
+    dataflows and ``mixed``, the qwen2 gate/up product at 4 tokens sharded
+    2 and 4 ways (serial), the qwen2-width ``compress_ffn`` at 4 and 128
+    tokens, and granite-moe-1b-a400m's ``MoEPlan`` (``sort``).  Per plan:
+    its phase-1 host ms beside the host ms of a cold ``verify_plan`` (no
+    ERROR, gated).  Each K1/K2 plan and the FFN are applied on the card
+    (1e-4 of fp64; K1 and K2 launches > 0); every ``cuda`` leaf plan's
+    ``DeviceSchedule`` is read back and audited (0 errors, gated); a gust
+    plan given a pad entry inside its grid must raise
+    ``PlanVerificationError`` with no K1/K2 launch.
+    (b) one V7 apply per dataflow under ``trace_report`` (0 host syncs,
+    one launch, gated), a ``RetraceDetector`` over three ``PlanCache``
+    hits, and ``ServeEngine.verify_plans()`` over the FFN's plans (gated).
+    (c) the quick corpus and its forest fitted in the phase, saved, and
+    loaded through ``REPRO_TUNE_MODEL``; Table 6 and the four qwen2
+    products planned with ``policy="learned"`` (picks in ``ctx.allowed``,
+    1e-4, K1/K2 launches, gated) beside a cold ``SimulatorPolicy``, with
+    the select µs of each.
+    (d) ``AutotunePolicy(db=...)`` over Table 6, then a fresh policy on the
+    same file: 9 DB hits, 0 sweeps, the same picks (gated).
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
-``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``).  With
+``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``, phase
+14's under ``analysis`` and ``tune``).  With
 no CUDA device it exits 2 before printing any result.
 
     python3 chip_smoke.py --sweeps
@@ -124,6 +150,11 @@ alternate with another tree's in one call.
 
 runs phases 1 and 13 alone (the build, then sharded plans, serial and
 collective) and prints no result lines.
+
+    python3 chip_smoke.py --analysis
+
+runs phases 1 and 14 alone (the build, then analysis and tune) and
+prints no result lines.
 """
 from __future__ import annotations
 
@@ -1550,6 +1581,440 @@ def dist_phase(device):
             "breakdown": breakdown[0], "seconds": seconds}
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+#: the quick corpus the learned policy fits in phase 14 (the JAX package's
+#: payoff-gate recipe: 1600 synthetic patterns, labels 10% apart)
+TUNE_CORPUS = dict(n_synthetic=1600, quick=True, seed=0, min_margin=0.1)
+
+
+def _leaf_plans(plan):
+    """The FlexagonPlans a plan applies through (itself, tiles, shards)."""
+    from repro_torch import FlexagonPlan
+
+    if isinstance(plan, FlexagonPlan):
+        return [plan]
+    return [leaf for sub in getattr(plan, "plans", ())
+            for leaf in _leaf_plans(sub)]
+
+
+def _verified(label, build, rows):
+    """``build()`` a plan through an entry point with ``verify=True``,
+    then verify it once more with the schedule memo cleared (the same work
+    the build's gate did): the host ms of ``verify_plan`` beside the rest
+    of the build's.  Any ERROR fails the run."""
+    from repro_torch.analysis import errors_of, verify_plan
+    from repro_torch.analysis import schedule as checker
+
+    t0 = time.perf_counter()
+    plan = build()
+    t_build = time.perf_counter() - t0
+    checker._MEMO.clear()
+    t0 = time.perf_counter()
+    diags = verify_plan(plan)
+    t_verify = time.perf_counter() - t0
+    errs = errors_of(diags)
+    rows.append({"case": label, "kind": type(plan).__name__,
+                 "dataflow": getattr(plan, "dataflow", None),
+                 "phase1_ms": (t_build - t_verify) * 1e3,
+                 "verify_ms": t_verify * 1e3,
+                 "diagnostics": [f"{d.code}/{d.severity}" for d in diags]})
+    if errs:
+        raise SystemExit(f"verify {label}: " + "; ".join(map(str, errs)))
+    return plan
+
+
+def _selection_context(a, b, bs, backend):
+    """The context phase 1 hands a policy for ``a @ b`` (for timing the
+    policies' ``select`` alone)."""
+    from repro_torch.api import _fingerprint, _pattern_of
+    from repro_torch.backends import (SelectionContext, allowed_dataflows,
+                                      get_backend)
+    from repro_torch.core.selector import DeviceSpec, LayerShape
+
+    (m, k), occ_a = _pattern_of(a, bs[:2])
+    (_, n), occ_b = _pattern_of(b, bs[1:])
+    be = get_backend(backend)
+    return SelectionContext(
+        shape=LayerShape(m=m, k=k, n=n, density_a=float(occ_a.mean()),
+                         density_b=float(occ_b.mean()), block=bs),
+        block_shape=bs, occ_a=occ_a, occ_b=occ_b,
+        fingerprint=_fingerprint(occ_a, occ_b, (m, k, n), bs), backend=be,
+        spec=DeviceSpec(), allowed=allowed_dataflows(be, bs),
+        device=a.device)
+
+
+def _median_us(fn, reps=5):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e6)
+    return sorted(ts)[len(ts) // 2]
+
+
+def _analysis_verify(device, operands):
+    """Phase 14(a): plans built with ``verify=True`` through the entry
+    points, applied on the card; their device tables read back and
+    audited; a corrupted plan caught before it launches anything."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import PAPER_BUDGET, compress_ffn, flexagon_plan
+    from repro_torch import sparse_ffn_apply
+    from repro_torch.analysis import (PlanVerificationError,
+                                      check_device_schedule, verify_cache)
+    from repro_torch.configs import get_config
+    from repro_torch.core.dataflows import DATAFLOWS
+    from repro_torch.launch.mesh import make_virtual_mesh
+    from repro_torch.models.moe import plan_moe
+
+    rows, applied = [], []
+    bs32, bs128 = (32,) * 3, (QWEN2_BLOCK,) * 3
+    rng = np.random.default_rng(SEED + 2)
+    params, wg, wu, wd = _qwen2_params(rng, device, QWEN2_D, QWEN2_F,
+                                       QWEN2_BLOCK)
+    x4 = torch.as_tensor(rng.standard_normal((4, QWEN2_D), np.float32),
+                         device=device)
+    with EscapeOff():
+        for name, (a, b) in operands.items():
+            for d in DATAFLOWS:
+                plan = _verified(f"{name} {d}", lambda: flexagon_plan(
+                    a, b, dataflow=d, block_shape=bs32, backend="cuda",
+                    verify=True), rows)
+                applied.append((f"{name} {d}", plan, a, b))
+        a, b = operands["V0"]
+        for d in DATAFLOWS + ("mixed",):
+            plan = _verified(f"V0 {d} PAPER_BUDGET", lambda: flexagon_plan(
+                a, b, dataflow=d, block_shape=bs32, backend="cuda",
+                memory_budget=PAPER_BUDGET, verify=True), rows)
+            applied.append((f"V0 {d} PAPER_BUDGET", plan, a, b))
+        for shards in DIST_SHARDS:
+            for d in ("ip_m", "op_m", "gust_m"):
+                label = f"qwen2 gate/up 4 {d} {shards} shards"
+                plan = _verified(label, lambda: flexagon_plan(
+                    x4, wg, dataflow=d, block_shape=bs128, backend="cuda",
+                    mesh=make_virtual_mesh(shards, device), verify=True),
+                    rows)
+                if plan.path != "serial":
+                    raise SystemExit(f"verify {label}: path {plan.path}")
+                applied.append((label, plan, x4, wg))
+        t0 = time.perf_counter()
+        comp = compress_ffn(params, tokens=4, block=QWEN2_BLOCK,
+                            backend="cuda", device=device, verify=True)
+        comp.specialize(128)
+        t_ffn = time.perf_counter() - t0
+        from repro_torch.analysis import schedule as checker
+
+        checker._MEMO.clear()
+        t0 = time.perf_counter()
+        ffn_diags = verify_cache(comp.plan_cache)
+        t_cache = time.perf_counter() - t0
+        rows.append({"case": "compress_ffn qwen2 (4, 128 tokens)",
+                     "kind": "PlanCache", "dataflow": None,
+                     "plans": len(comp.plan_cache),
+                     "phase1_ms": (t_ffn - t_cache) * 1e3,
+                     "verify_ms": t_cache * 1e3,
+                     "diagnostics": [f"{d.code}/{d.severity}"
+                                     for d in ffn_diags]})
+        if any(d.is_error for d in ffn_diags):
+            raise SystemExit(f"verify compress_ffn: {ffn_diags}")
+        _verified("granite-moe-1b-a400m MoEPlan sort", lambda: plan_moe(
+            get_config(GRANITE), 4, strategy="sort"), rows)
+
+        # every K1/K2 plan on the card, against fp64
+        _reset_launches()
+        worst = 0.0
+        for label, plan, a, b in applied:
+            err = _rel_err(plan.apply(a, b), a.double() @ b.double())
+            worst = max(worst, err)
+            if err > REL_TOL:
+                raise SystemExit(f"verify {label}: error {err:.2e}")
+        xs = {4: x4.reshape(4, 1, QWEN2_D),
+              128: torch.as_tensor(rng.standard_normal(
+                  (1, 128, QWEN2_D), np.float32), device=device)}
+        for tokens, x in xs.items():
+            x2 = x.reshape(-1, QWEN2_D).double()
+            ref = ((torch.nn.functional.silu(x2 @ wg.double())
+                    * (x2 @ wu.double())) @ wd.double()).reshape(x.shape)
+            err = _rel_err(sparse_ffn_apply(comp, x), ref)
+            worst = max(worst, err)
+            if err > REL_TOL:
+                raise SystemExit(f"verify ffn {tokens}: error {err:.2e}")
+        torch.cuda.synchronize()
+        k1, k2 = _launches()
+    if min(k1, k2) <= 0:
+        raise SystemExit(f"verify: K1 {k1} / K2 {k2} launches")
+    for r in rows:
+        log(f"verify {r['case']:38s} {r['kind']:12s} phase1 "
+            f"{r['phase1_ms']:9.2f} ms verify {r['verify_ms']:8.2f} ms "
+            f"diagnostics {r['diagnostics'] or 'none'}")
+    tot_p1 = sum(r["phase1_ms"] for r in rows)
+    tot_v = sum(r["verify_ms"] for r in rows)
+    log(f"verify: {len(rows)} builds, phase 1 {tot_p1:.1f} ms and "
+        f"verify_plan {tot_v:.1f} ms of host time in all "
+        f"({tot_v / max(tot_p1, 1e-9):.2f}x); {len(applied)} plans and the "
+        f"FFN applied on the card: K1 {k1}, K2 {k2} launches, max rel err "
+        f"vs fp64 {worst:.2e} (tol {REL_TOL:g})")
+
+    # the device tables the kernels read, back from the card
+    leaves = [leaf for _, plan, _, _ in applied for leaf in
+              _leaf_plans(plan)]
+    leaves += [leaf for plan in comp.plan_cache._plans.values()
+               for leaf in _leaf_plans(plan)]
+    t0 = time.perf_counter()
+    table_errs = [d for leaf in leaves for d in check_device_schedule(leaf)]
+    t_tables = time.perf_counter() - t0
+    chunks = sum(leaf.aux["device_schedule"].n_chunk for leaf in leaves)
+    cols = sum(leaf.aux["device_schedule"].cols.n_seg for leaf in leaves
+               if leaf.aux["device_schedule"].cols is not None)
+    log(f"verify device tables: {len(leaves)} cuda plans' DeviceSchedules "
+        f"read back from {device} and audited ({chunks} K1/K2 chunks, "
+        f"{cols} K2 column segments) in {t_tables * 1e3:.1f} ms: "
+        f"{len(table_errs)} errors")
+    if table_errs:
+        raise SystemExit("verify device tables: "
+                         + "; ".join(map(str, table_errs[:5])))
+
+    # a caught fault: a pad entry aimed inside the grid (the reference's
+    # pad-inbounds mutation), refused before anything launches
+    _, plan, a, b = next(x for x in applied if x[1].dataflow == "gust_m")
+    sp = plan.index_plan
+    pad = lambda arr: np.append(np.asarray(arr), np.int32(0))  # noqa: E731
+    bad = dataclasses.replace(plan, index_plan=dataclasses.replace(
+        sp, ci=pad(sp.ci), cj=pad(sp.cj), a_slot=pad(sp.a_slot),
+        b_slot=pad(sp.b_slot)))
+    from repro_torch.analysis import verify_plan
+
+    before = _launches()
+    try:
+        verify_plan(bad, raise_on_error=True)
+    except PlanVerificationError as exc:
+        caught = sorted({d.code for d in exc.diagnostics if d.is_error})
+    else:
+        raise SystemExit("verify: the corrupted plan was not caught")
+    if _launches() != before or "pad-inbounds" not in caught:
+        raise SystemExit(f"verify fault: codes {caught}, launches "
+                         f"{before} -> {_launches()}")
+    log(f"verify fault: a pad entry inside the {plan.dataflow} grid -> "
+        f"PlanVerificationError {caught}; K1/K2 launches unchanged "
+        f"{before}")
+    return {"builds": rows, "k1": k1, "k2": k2, "max_rel_err": worst,
+            "device_tables": {"plans": len(leaves), "chunks": chunks,
+                              "column_segments": cols,
+                              "ms": t_tables * 1e3,
+                              "errors": len(table_errs)},
+            "fault_codes": caught}, comp
+
+
+def _analysis_trace(device, operands, comp):
+    """Phase 14(b): one apply per dataflow under the dispatch recorder (no
+    host sync), a RetraceDetector over PlanCache hits, and an engine's
+    ``verify_plans``."""
+    import torch
+
+    from repro_torch import PlanCache, flexagon_plan
+    from repro_torch.analysis import RetraceDetector, trace_report
+    from repro_torch.configs import get_config
+    from repro_torch.core.dataflows import DATAFLOWS
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    rows = []
+    a, b = operands["V7"]
+    with EscapeOff():
+        for d in DATAFLOWS:
+            plan = flexagon_plan(a, b, dataflow=d, block_shape=(32,) * 3,
+                                 backend="cuda")
+            plan.apply(a, b)                      # warm: build, first use
+            rep = trace_report(plan, a, b)
+            top = sorted(rep.ops.items(), key=lambda kv: -kv[1])[:4]
+            rows.append({"dataflow": d, "host_syncs": rep.host_syncs,
+                         "launches": {k: v for k, v in rep.launches.items()
+                                      if v},
+                         "aten_ops": rep.n_ops, "ops": rep.ops,
+                         "flops": rep.flops, "op_hash": rep.op_hash})
+            log(f"trace V7 {d:6s} host syncs {rep.host_syncs or 0} "
+                f"launches {rows[-1]['launches']} aten ops {rep.n_ops} "
+                f"(top {top}) flops {rep.flops:.3e} "
+                f"hash {rep.op_hash[:12]}")
+            if not rep.pure or sum(rep.launches.values()) != 1:
+                raise SystemExit(f"trace {d}: syncs {rep.host_syncs}, "
+                                 f"launches {rep.launches}")
+        cache, det = PlanCache(), RetraceDetector()
+        for _ in range(3):
+            det.observe(cache.get(a, b, dataflow="ip_m",
+                                  block_shape=(32,) * 3, backend="cuda"))
+    if not det.stable or cache.stats["hits"] != 2:
+        raise SystemExit(f"trace: retraced {det.retraces} / {cache.stats}")
+    cfg = get_config("smollm-360m", smoke=True)
+    model = build_model(cfg, device=device)
+    engine = ServeEngine(model, model.init(seed=SEED, dtype=torch.bfloat16),
+                         slots=4, max_seq=64, sparse_ffn=comp)
+    diags = engine.verify_plans()
+    log(f"trace RetraceDetector over 3 PlanCache hits: stable "
+        f"{det.stable}; ServeEngine.verify_plans() over "
+        f"{len(comp.plan_cache)} qwen2-width plans: "
+        f"{[str(d) for d in diags] or 'no diagnostics'}")
+    if any(d.is_error for d in diags):
+        raise SystemExit(f"trace: verify_plans found {diags}")
+    return {"per_dataflow": rows, "retrace_stable": det.stable,
+            "engine_diagnostics": [str(d) for d in diags]}
+
+
+def _tune_learned(device, operands):
+    """Phase 14(c): the quick corpus and its forest, fitted here; Table 6
+    and the qwen2 products planned with ``policy="learned"`` through
+    ``REPRO_TUNE_MODEL``, applied on the card, beside a cold
+    ``SimulatorPolicy``'s picks and the ``select`` latency of each."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import flexagon_plan, get_policy, register_backend
+    from repro_torch.backends import SimulatorBackend, SimulatorPolicy
+    from repro_torch.backends import policies
+    from repro_torch.tune import (corpus_matrices, fit_examples,
+                                  generate_corpus, split_corpus)
+
+    t0 = time.perf_counter()
+    examples = generate_corpus(**TUNE_CORPUS)
+    t_corpus = time.perf_counter() - t0
+    train, held = split_corpus(examples, held_out=0.2, seed=0)
+    t0 = time.perf_counter()
+    fitted = fit_examples(train, model="forest")
+    t_fit = time.perf_counter() - t0
+    X, y = corpus_matrices(held)
+    held_agree = float((fitted.model.predict_proba(X).argmax(1) == y).mean())
+    path = OUT_DIR / "tune" / "model.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fitted.save(str(path))
+    os.environ["REPRO_TUNE_MODEL"] = str(path)
+    policies._NAMED.pop("learned", None)
+    learned = get_policy("learned")
+    log(f"learned: quick corpus {len(examples)} examples in {t_corpus:.2f} "
+        f"s, forest fit on {len(train)} in {t_fit:.2f} s, held-out "
+        f"agreement with the simulator's labels {held_agree:.3f} over "
+        f"{len(held)}; REPRO_TUNE_MODEL={path}")
+    cold = SimulatorBackend()
+    cold.name = "simulator-cold"
+    register_backend(cold, overwrite=True)
+    sim = SimulatorPolicy(backend=cold)
+
+    rng = np.random.default_rng(SEED + 2)
+    _, wg, _, wd = _qwen2_params(rng, device, QWEN2_D, QWEN2_F, QWEN2_BLOCK)
+    cases = [(name, a, b, (32,) * 3) for name, (a, b) in operands.items()]
+    for tokens in (4, 128):
+        x = torch.as_tensor(rng.standard_normal((tokens, QWEN2_D),
+                                                np.float32), device=device)
+        h = torch.as_tensor(rng.standard_normal((tokens, QWEN2_F),
+                                                np.float32), device=device)
+        cases += [(f"qwen2 gate/up {tokens}", x, wg, (QWEN2_BLOCK,) * 3),
+                  (f"qwen2 down {tokens}", h, wd, (QWEN2_BLOCK,) * 3)]
+    rows, worst = [], 0.0
+    _reset_launches()
+    with EscapeOff():
+        for label, a, b, bs in cases:
+            ctx = _selection_context(a, b, bs, "cuda")
+            fb = learned.fallbacks
+            plan = flexagon_plan(a, b, block_shape=bs, backend="cuda",
+                                 policy="learned", verify=True)
+            fell = learned.fallbacks - fb
+            err = _rel_err(plan.apply(a, b), a.double() @ b.double())
+            worst = max(worst, err)
+            t0 = time.perf_counter()
+            sim_pick = sim.select(ctx)
+            sim_us = (time.perf_counter() - t0) * 1e6
+            learned_us = _median_us(lambda: learned.select(ctx))
+            row = {"case": label, "learned": plan.dataflow,
+                   "simulator": sim_pick, "fallback": bool(fell),
+                   "learned_select_us": learned_us,
+                   "simulator_select_us": sim_us, "rel_err_fp64": err}
+            rows.append(row)
+            log(f"learned {label:16s} -> {plan.dataflow:6s} "
+                f"{'(fallback) ' if fell else ''}simulator -> "
+                f"{sim_pick:6s} select {learned_us:8.1f} us vs simulator "
+                f"{sim_us:10.1f} us (cold); rel err {err:.2e}")
+            if plan.dataflow not in ctx.allowed or err > REL_TOL:
+                raise SystemExit(f"learned {label}: {plan.dataflow} not in "
+                                 f"{ctx.allowed} or error {err:.2e}")
+        torch.cuda.synchronize()
+        k1, k2 = _launches()
+    agree = sum(r["learned"] == r["simulator"] for r in rows)
+    med = lambda k: float(np.median([r[k] for r in rows]))  # noqa: E731
+    log(f"learned: {len(rows)} products, agreement with SimulatorPolicy "
+        f"{agree}/{len(rows)}, fallbacks "
+        f"{sum(r['fallback'] for r in rows)}; median select "
+        f"{med('learned_select_us'):.1f} us vs simulator "
+        f"{med('simulator_select_us'):.1f} us "
+        f"({med('simulator_select_us') / med('learned_select_us'):.0f}x); "
+        f"K1 {k1}, K2 {k2} launches, max rel err {worst:.2e}")
+    if min(k1, k2) <= 0:
+        raise SystemExit(f"learned: K1 {k1} / K2 {k2} launches")
+    return {"corpus": len(examples), "corpus_s": t_corpus, "fit_s": t_fit,
+            "held_out_agreement": held_agree, "products": rows,
+            "agreement": agree, "k1": k1, "k2": k2, "max_rel_err": worst}
+
+
+def _tune_db(device, operands):
+    """Phase 14(d): AutotunePolicy over Table 6 writing a TuneDB, then a
+    fresh policy on the same file answering every layer from it."""
+    import torch
+
+    from repro_torch import flexagon_plan, register_backend
+    from repro_torch.backends import AutotunePolicy, CudaBackend
+
+    be = CudaBackend()
+    be.name = "cuda-tunedb"
+    register_backend(be, overwrite=True)
+    path = OUT_DIR / "tune" / "tunedb.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    out = {}
+    for run in ("sweep", "hit"):
+        pol = AutotunePolicy(db=str(path))
+        t0 = time.perf_counter()
+        picks = {name: flexagon_plan(a, b, block_shape=(32,) * 3,
+                                     backend=be, policy=pol).dataflow
+                 for name, (a, b) in operands.items()}
+        torch.cuda.synchronize()
+        out[run] = {"s": time.perf_counter() - t0, "picks": picks,
+                    "measurements": pol.measurements,
+                    "db_hits": pol.db_hits, "entries": len(pol.db)}
+        log(f"tunedb {run:5s}: {len(picks)} Table 6 layers in "
+            f"{out[run]['s']:.3f} s, {pol.measurements} sweeps, "
+            f"{pol.db_hits} db hits, {len(pol.db)} entries in {path.name} "
+            f"(card {torch.cuda.get_device_name(device)!r} in the key)")
+    n = len(operands)
+    if out["sweep"]["measurements"] != n or out["hit"]["db_hits"] != n \
+            or out["hit"]["measurements"] != 0 \
+            or out["hit"]["picks"] != out["sweep"]["picks"]:
+        raise SystemExit(f"tunedb: {out}")
+    log(f"tunedb: the fresh policy answered all {n} layers from the file, "
+        f"same picks, {out['sweep']['s'] / out['hit']['s']:.0f}x faster "
+        f"than the sweep")
+    return out
+
+
+def analysis_phase(device):
+    """Phase 14: verified plans, device tables, a caught fault, dispatch
+    traces, the learned policy and the TuneDB, at full width."""
+    t0 = time.perf_counter()
+    operands = _table6_operands(device)
+    verify, comp = _analysis_verify(device, operands)
+    trace = _analysis_trace(device, operands, comp)
+    learned = _tune_learned(device, operands)
+    db = _tune_db(device, operands)
+    seconds = time.perf_counter() - t0
+    log(f"phase 14 (analysis, tune) took {seconds:.1f} s")
+    return ({"verify": verify, "trace": trace, "seconds": seconds},
+            {"learned": learned, "tunedb": db})
+
+
 # -- phase 7 -----------------------------------------------------------------
 
 
@@ -1995,6 +2460,12 @@ def main() -> int:
         dist_phase(device)
         log(f"dist done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
+    if "--analysis" in sys.argv[1:]:
+        # phases 1 and 14 alone: verification, traces, learned, TuneDB
+        analysis_phase(device)
+        log(f"analysis done in {time.perf_counter() - t_start:.1f} s on "
+            f"{card}")
+        return 0
     worst = kernel_sweep(device)
 
     calls = []
@@ -2050,6 +2521,8 @@ def main() -> int:
     log(f"phases 10-12 done at {time.perf_counter() - t_start:.1f} s")
     dist = dist_phase(device)
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    analysis, tune = analysis_phase(device)
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, t in totals.items():
@@ -2070,7 +2543,8 @@ def main() -> int:
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
-         "pipeline": pipeline, "dist": dist}, indent=1))
+         "pipeline": pipeline, "dist": dist, "analysis": analysis,
+         "tune": tune}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

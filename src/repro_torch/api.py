@@ -43,9 +43,8 @@ strategy and returns a :class:`repro_torch.dist.ShardedPlan` — same
 ``apply`` contract; on a process-group mesh one shard per rank, merged by
 one ``torch.distributed`` ``all_reduce``.
 
-Not ported yet, and raising ``NotImplementedError``: ``verify=True`` —
-also the ``REPRO_VERIFY=1`` default — which needs the plan verifier
-(ROADMAP queue 1, item 10).
+``verify=True`` (also the ``REPRO_VERIFY=1`` default) gates every plan
+build behind :func:`repro_torch.analysis.verify_plan`.
 
 ``PHASE1_COUNTERS`` counts selector / layout / index-plan constructions so
 tests (and profiles) can assert that execution never re-plans.
@@ -93,18 +92,6 @@ PHASE1_COUNTERS = {"selector": 0, "layouts": 0, "index_plans": 0}
 
 _BLOCK_CLS = {SparseFormat.BCSR: BlockCSR, SparseFormat.BCSC: BlockCSC}
 _SCALAR_CLS = {SparseFormat.CSR: CSR, SparseFormat.CSC: CSC}
-
-
-def _refuse_unported(verify: Optional[bool] = None) -> None:
-    """Refuse ``verify=``, whose machinery is a later slice.
-
-    ``verify=None`` defers to ``REPRO_VERIFY``, so that default raises too:
-    a plan is never handed out as verified when nothing verified it."""
-    if resolve_verify(verify):
-        raise NotImplementedError(
-            "verify=True (or REPRO_VERIFY=1) needs the plan verifier, which "
-            "is not ported yet: ROADMAP queue 1, item 10 (analysis/); pass "
-            "verify=False or unset REPRO_VERIFY")
 
 
 @dataclasses.dataclass
@@ -513,15 +500,21 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
     each shard.  With ``device=None`` a single-process mesh's plans go to
     the mesh's device.
 
-    ``verify=True`` (also through ``REPRO_VERIFY=1``) is not ported yet
-    and raises ``NotImplementedError``.
+    ``verify`` gates the returned plan behind
+    :func:`repro_torch.analysis.verify_plan` — structural invariants
+    (coverage, merge compatibility, pad validity, backend capability,
+    fingerprint agreement, and on ``cuda`` the schedule and the device
+    tables the kernels read) are re-derived from the built plan and an
+    error-severity violation raises
+    :class:`repro_torch.analysis.PlanVerificationError` instead of handing
+    out a corrupt plan.  ``None`` defers to ``REPRO_VERIFY`` (on in the
+    test suite, off otherwise).
 
     Phase 1 is observable (:mod:`repro_torch.obs`): the build runs under a
     ``plan.phase1`` span with ``plan.select`` / ``plan.schedule`` /
     ``plan.tables`` / ``plan.prepare`` children when ``REPRO_TRACE`` is on,
     and counts into ``plan.builds`` / ``plan.build_s`` / ``policy.select_s``.
     """
-    _refuse_unported(verify)
     dev = _resolve_plan_device(device, mesh)
     t0 = obs.now_ns()
     with obs.span("plan.phase1", dataflow=dataflow) as sp:
@@ -531,12 +524,25 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
                             memory_budget=memory_budget, mesh=mesh,
                             partition=partition,
                             tile_dataflows=tile_dataflows)
+        _maybe_verify(plan, verify)
         sp.set(chosen=plan.dataflow, kind=type(plan).__name__,
                backend=plan.backend)
     reg = obs.get_registry()
     reg.counter("plan.builds").inc()
     reg.histogram("plan.build_s").observe((obs.now_ns() - t0) / 1e9)
     return plan
+
+
+def _maybe_verify(plan, verify: Optional[bool]) -> None:
+    """The pre-execution gate: verify a freshly built plan when asked.
+
+    Runs only at build time — cache *hits* hand back plans that already
+    passed (re-verifying per hit would put host work on the serving path).
+    """
+    if resolve_verify(verify):
+        from .analysis.verify import verify_plan   # lazy: analysis uses api
+
+        verify_plan(plan, raise_on_error=True)
 
 
 def _resolve_plan_device(device, mesh) -> torch.device:
@@ -725,11 +731,13 @@ class PlanCache:
             mesh: Optional[Any] = None,
             partition: Optional[Any] = None,
             verify: Optional[bool] = None):
-        # ``verify`` gates plan *builds* only and is not part of the key
+        # ``verify`` gates plan *builds* only (misses); hits return plans
+        # that already passed, keeping verification off the serving path.
+        # It is deliberately not part of the cache key — a verified and an
+        # unverified build of the same pattern are the same plan.
         from .dist.partition import mesh_key   # lazy: dist uses api
         from .launch.mesh import mesh_placement
 
-        _refuse_unported(verify)
         dev = _resolve_plan_device(device, mesh)
         bm, bk, bn = block_shape
         (m, k), occ_a = _pattern_of(a_spec, (bm, bk))

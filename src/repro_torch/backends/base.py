@@ -94,6 +94,16 @@ class ExecutionBackend(abc.ABC):
     #: own unpadded plan leaves this ``False`` and gets the tile loop.
     scan_streaming: bool = False
 
+    #: The ``plan.aux`` key under which this backend stores the
+    #: :class:`repro_torch.kernels.StreamSchedule` its ``execute``
+    #: consumes, or ``None`` for backends that execute straight off the
+    #: index plan.  This is the registration seam for the static schedule
+    #: checker (:mod:`repro_torch.analysis.schedule`): when set,
+    #: ``verify_plan`` requires the key on every prepared plan and proves
+    #: the schedule's invariant families over it, and over the uploaded
+    #: ``device_schedule`` beside it.
+    schedule_aux_key: Optional[str] = None
+
     @abc.abstractmethod
     def capabilities(self) -> BackendCapability:
         """Declare what this backend can run."""

@@ -67,6 +67,11 @@ class CudaBackend(ExecutionBackend):
     # the kernels drop pad runs aimed one past the output grid, so padded
     # OP slab sub-plans (tiled plans) and padded lanes execute as they are
     scan_streaming = True
+    # registers every cuda plan with the static schedule checker
+    # (repro_torch.analysis.schedule): verify_plan proves the schedule's
+    # invariants, and audits the device tables K1/K2 read, before anything
+    # executes it
+    schedule_aux_key = "stream_schedule"
 
     def __init__(self, dense_threshold: float = 0.5):
         #: occupancy escape hatch: when a plan's effectual block-pair count

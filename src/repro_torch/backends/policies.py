@@ -10,11 +10,9 @@ This module is that seam:
 - :class:`AutotunePolicy`  — measure every candidate dataflow on the device
   at plan time and pick the fastest, LRU-cached by pattern fingerprint;
 - :class:`FixedPolicy`     — always the given dataflow (what an explicit
-  ``dataflow="ip_m"`` argument resolves to).
-
-The JAX package's ``learned`` policy and autotune's persistent ``TuneDB``
-are not ported yet (ROADMAP queue 1, item 11); naming them raises
-``NotImplementedError``.
+  ``dataflow="ip_m"`` argument resolves to);
+- ``"learned"`` resolves to :class:`repro_torch.tune.LearnedPolicy`
+  (microsecond selection from pattern features).
 
 A policy sees one :class:`SelectionContext` (shape features, occupancy
 bitmaps, fingerprint, the target backend) and returns a dataflow name from
@@ -288,16 +286,24 @@ class AutotunePolicy(SelectionPolicy):
     ``measurements`` / ``evictions`` counters mirror the ``PlanCache``
     telemetry and surface through ``ServeEngine.stats["policy"]``.
 
+    ``db=`` (a path or :class:`repro_torch.tune.TuneDB`; defaults to the
+    ``REPRO_TUNE_DB`` env var when unset) makes the measurement cache
+    **persistent and fleet-shared**: selects read through the on-disk
+    database before measuring and write every fresh sweep back, so a
+    second process (or a restarted server) starts hot — its first select
+    on a known pattern is a disk hit, not a sweep (``db_hits``).  The
+    database key (:func:`repro_torch.tune.db_key`) takes the mesh
+    placement, and, for a sweep measured on a card, the card's kind
+    (``torch.cuda.get_device_name``): a database written on one kind of
+    card never answers for another.  Without a mesh and off the card the
+    key equals the JAX package's.
+
     Backends may declare **tuning knobs**
     (:meth:`repro_torch.backends.ExecutionBackend.tuning_knobs`, e.g. the
     cuda dense-escape threshold): the sweep then measures the (dataflow ×
     knob) cross product jointly and applies the winning knob values to the
     backend instance before the real plan is built.
     :meth:`select_block` measures candidate block shapes the same way.
-
-    The JAX package's persistent, fleet-shared ``TuneDB`` (``db=``,
-    ``REPRO_TUNE_DB``) is not ported yet (ROADMAP queue 1, item 11): asking
-    for one raises, and the cache lives in this process only.
     """
 
     name = "autotune"
@@ -306,10 +312,6 @@ class AutotunePolicy(SelectionPolicy):
                  db: Optional[Any] = None):
         if maxsize is not None and maxsize < 1:
             raise ValueError(f"maxsize must be >= 1 or None, got {maxsize}")
-        if db is not None or os.environ.get("REPRO_TUNE_DB"):
-            raise NotImplementedError(
-                "AutotunePolicy's persistent TuneDB (db= / REPRO_TUNE_DB) "
-                "is not ported yet: ROADMAP queue 1, item 11 (tune/)")
         self.reps = reps
         self.maxsize = maxsize
         self._cache: "OrderedDict[tuple, Any]" = OrderedDict()
@@ -317,8 +319,16 @@ class AutotunePolicy(SelectionPolicy):
         self.hits = 0              # in-memory LRU hits
         self.misses = 0
         self.evictions = 0
+        self.db_hits = 0           # persistent-DB read-through hits
         #: seconds per "dataflow|knob=value" candidate of the latest sweep
         self.last_timings: Dict[str, float] = {}
+        if db is None:
+            db = os.environ.get("REPRO_TUNE_DB") or None
+        if db is not None and not hasattr(db, "get"):
+            from ..tune.db import TuneDB   # lazy: tune imports this module
+
+            db = TuneDB(str(db))
+        self.db = db
 
     @property
     def stats(self) -> Dict[str, Any]:
@@ -327,7 +337,26 @@ class AutotunePolicy(SelectionPolicy):
                     "measurements": self.measurements,
                     "evictions": self.evictions,
                     "size": len(self._cache), "maxsize": self.maxsize})
+        if self.db is not None:
+            out["db_hits"] = self.db_hits
+            out["db"] = self.db.stats
         return out
+
+    def _db_key(self, ctx: SelectionContext, prefix: str = "") -> str:
+        """The durable key: the in-memory key's fields, with the card's
+        kind in place of the accelerator config when sweeps run on one."""
+        from ..dist.partition import mesh_key   # lazy: dist uses api
+        from ..launch.mesh import mesh_placement
+        from ..tune.db import db_key            # lazy: tune imports us
+
+        device = resolve_device(ctx.device)
+        accel = (torch.cuda.get_device_name(device)
+                 if device.type == "cuda"
+                 else getattr(ctx.backend, "cfg", None))
+        return db_key(prefix + ctx.fingerprint, ctx.backend.name,
+                      ctx.block_shape, memory_budget=ctx.memory_budget,
+                      mesh_key=mesh_key(ctx.mesh), partition=ctx.partition,
+                      accel=accel, placement=mesh_placement(ctx.mesh))
 
     def _remember(self, key: tuple, value: Any) -> None:
         self._cache[key] = value
@@ -356,9 +385,29 @@ class AutotunePolicy(SelectionPolicy):
             self._apply_knobs(ctx.backend, hit[1])
             return hit[0]
         self.misses += 1
-        choice, knobs, _ = self._measure(ctx)
+        if self.db is not None:
+            # every rank of a process-group mesh takes the first rank's
+            # record, so that all of them hit, or all measure together
+            rec = _first_rank_pick(ctx.mesh, self.db.get(self._db_key(ctx)))
+            if rec is not None and rec.get("choice") in ctx.allowed:
+                self.db_hits += 1
+                knobs = dict(rec.get("knobs") or {})
+                self._remember(key, (rec["choice"], knobs))
+                self._apply_knobs(ctx.backend, knobs)
+                return rec["choice"]
+        choice, knobs, timings = self._measure(ctx)
         choice, knobs = _first_rank_pick(ctx.mesh, (choice, knobs))
         self._remember(key, (choice, knobs))
+        if self.db is not None:
+            self.db.put(self._db_key(ctx), {
+                "choice": choice,
+                "knobs": knobs,
+                "timings_s": timings,
+                "fingerprint": ctx.fingerprint,
+                "backend": ctx.backend.name,
+                "block_shape": list(ctx.block_shape),
+                "reps": self.reps,
+            })
         self._apply_knobs(ctx.backend, knobs)
         return choice
 
@@ -447,7 +496,9 @@ class AutotunePolicy(SelectionPolicy):
         The block-shape analogue of :meth:`select`: synthesizes values on
         the pattern, builds one (policy-default dataflow) plan per
         candidate block shape on the target backend, times ``apply``, and
-        returns the fastest — cached in the same LRU.
+        returns the fastest — cached in the same LRU and persisted under a
+        ``block:``-prefixed TuneDB key so the sweep runs once per
+        fingerprint across processes.
         """
         from .. import obs
         from ..api import flexagon_plan  # lazy: api imports this module
@@ -467,6 +518,14 @@ class AutotunePolicy(SelectionPolicy):
             self._cache.move_to_end(key)
             return hit
         self.misses += 1
+        if self.db is not None:
+            rec = _first_rank_pick(ctx.mesh,
+                                   self.db.get(self._db_key(ctx, "block:")))
+            best = tuple(rec["block_shape"]) if rec else None
+            if best in candidates:
+                self.db_hits += 1
+                self._remember(key, best)
+                return best
         self.measurements += 1
         obs.get_registry().counter("policy.measurements").inc()
         a, b = self._synth_operands(ctx)
@@ -486,6 +545,15 @@ class AutotunePolicy(SelectionPolicy):
                    key=lambda c: (timings["x".join(map(str, c))], c))
         best = _first_rank_pick(ctx.mesh, best)
         self._remember(key, best)
+        if self.db is not None:
+            self.db.put(self._db_key(ctx, "block:"), {
+                "choice": "x".join(map(str, best)),
+                "block_shape": list(best),
+                "timings_s": timings,
+                "fingerprint": ctx.fingerprint,
+                "backend": ctx.backend.name,
+                "reps": self.reps,
+            })
         return best
 
     def layer_cost(self, shape: LayerShape, dataflow: str,
@@ -498,9 +566,10 @@ class AutotunePolicy(SelectionPolicy):
 
 
 def _first_rank_pick(mesh, pick):
-    """On a process-group mesh every rank measured on its own device, and
-    their picks may differ; all take the mesh's first rank's, so that the
-    ranks build the same sharded plan.  Elsewhere ``pick`` as it is."""
+    """On a process-group mesh every rank measured (or read its TuneDB) on
+    its own, and their picks may differ; all take the mesh's first rank's,
+    so that the ranks build the same sharded plan.  Elsewhere ``pick`` as
+    it is."""
     from ..launch.mesh import is_process_mesh
 
     if not is_process_mesh(mesh):
@@ -572,10 +641,15 @@ def get_policy(policy: Union[str, SelectionPolicy, None],
     - ``dataflow="mixed"`` is *not* a pin: per-tile choices still need a
       pricing policy, so ``policy`` resolves exactly as it would for
       "auto" and the mixed planner calls its ``select_tile`` per tile;
-    - ``policy`` may be a name ("heuristic" / "simulator" / "autotune" —
-      or a dataflow name, shorthand for a fixed pin) or an instance;
-      ``"learned"`` is not ported yet (ROADMAP queue 1, item 11) and raises;
+    - ``policy`` may be a name ("heuristic" / "simulator" / "autotune" /
+      "learned" — or a dataflow name, shorthand for a fixed pin) or an
+      instance;
     - neither given → :class:`HeuristicPolicy`.
+
+    ``"learned"`` resolves to :class:`repro_torch.tune.LearnedPolicy`: if
+    ``REPRO_TUNE_MODEL`` names a fitted artifact it is loaded once; with
+    no artifact the policy is model-less and falls back to the heuristic
+    on every select (counted in its ``stats``).
     """
     if dataflow not in ("auto", "mixed"):
         return FixedPolicy(dataflow)
@@ -585,18 +659,20 @@ def get_policy(policy: Union[str, SelectionPolicy, None],
         return policy
     if policy in df.DATAFLOWS:
         return FixedPolicy(policy)
-    if policy == "learned":
-        raise NotImplementedError(
-            "policy 'learned' is not ported yet (ROADMAP queue 1, item 11); "
-            "use 'heuristic', 'simulator', 'autotune' or pin a dataflow")
-    if policy not in ("heuristic", "simulator", "autotune"):
+    if policy not in ("heuristic", "simulator", "autotune", "learned"):
         raise KeyError(f"unknown policy {policy!r}; expected "
-                       "'heuristic', 'simulator', 'autotune', a dataflow "
-                       "name, or a SelectionPolicy instance")
+                       "'heuristic', 'simulator', 'autotune', 'learned', "
+                       "a dataflow name, or a SelectionPolicy instance")
     inst = _NAMED.get(policy)
     if inst is None:
-        inst = {"heuristic": HeuristicPolicy,
-                "simulator": SimulatorPolicy,
-                "autotune": AutotunePolicy}[policy]()
+        if policy == "learned":
+            from ..tune.learned import LearnedPolicy   # lazy: tune uses us
+
+            path = os.environ.get("REPRO_TUNE_MODEL")
+            inst = LearnedPolicy.load(path) if path else LearnedPolicy()
+        else:
+            inst = {"heuristic": HeuristicPolicy,
+                    "simulator": SimulatorPolicy,
+                    "autotune": AutotunePolicy}[policy]()
         _NAMED[policy] = inst
     return inst

@@ -26,6 +26,7 @@ class ReferenceBackend(ExecutionBackend):
     # the executors drop work entries aimed outside the output grid, so
     # padded OP slab sub-plans (tiled plans) execute as they are
     scan_streaming = True
+    schedule_aux_key = None
 
     def capabilities(self) -> BackendCapability:
         return BackendCapability(

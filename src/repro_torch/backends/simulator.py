@@ -49,6 +49,7 @@ _STATS_SEED = 0
 class SimulatorBackend(ExecutionBackend):
     name = "simulator"
     scan_streaming = True          # executes through the reference path
+    schedule_aux_key = None        # no aux schedule — reference execution
 
     def __init__(self, cfg: AcceleratorConfig = PAPER_CONFIG):
         self.cfg = cfg

@@ -1,11 +1,10 @@
 """Process-wide execution knobs.
 
-``REPRO_VERIFY`` — pre-execution plan verification default.  Unset or
-falsy, plans are handed out unchecked; ``REPRO_VERIFY=1`` asks every
-``flexagon_plan``/``PlanCache`` build to be verified.  The port has no
-verifier yet (``analysis/`` is a later slice), so the knob is read and
-accepted but gates nothing.  An explicit ``verify=`` argument at any call
-site still wins.
+``REPRO_VERIFY`` — pre-execution plan verification default (see
+``repro_torch.analysis.verify_plan``).  Unset or falsy, plans are handed
+out unchecked; ``REPRO_VERIFY=1`` verifies every ``flexagon_plan`` /
+``PlanCache`` build.  An explicit ``verify=`` argument at any call site
+still wins.
 
 :func:`resolve_device` — where an entry point runs.  ``device=None``
 means the card (``cuda``); without one it raises rather than falling back

@@ -26,8 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..api import (PlanCache, SparseOperand, _refuse_unported,
-                   _resolve_plan_device)
+from ..api import PlanCache, SparseOperand, _resolve_plan_device
 from ..core.selector import DeviceSpec
 from .ffn import _masked_weight
 
@@ -187,10 +186,10 @@ def compress_ffn(ffn_params: Dict[str, Any], *, tokens: int,
     resolves to the card.  ``memory_budget`` auto-tiles over-budget
     matmuls (see :mod:`repro_torch.memory`).  ``mesh``/``partition`` shard
     every matmul's plan across a mesh (see :mod:`repro_torch.dist`).
-    ``verify=True`` (also through ``REPRO_VERIFY=1``) is not ported yet and
-    raises.
+    ``verify`` gates every plan build behind
+    :func:`repro_torch.analysis.verify_plan` (``None`` defers to
+    ``REPRO_VERIFY``).
     """
-    _refuse_unported(verify)
     if "block_mask" not in ffn_params:
         raise ValueError("FFN is not block-pruned (no 'block_mask')")
     dev = _resolve_plan_device(device, mesh)

@@ -123,11 +123,21 @@ class ServeEngine:
         return self.metrics.snapshot(prefix="serve.latency.")
 
     def verify_plans(self) -> List[Any]:
-        """Audit every plan cached for serving — needs the plan verifier,
-        which is not ported yet (ROADMAP queue 1, item 10)."""
-        raise NotImplementedError(
-            "verify_plans needs repro_torch.analysis, which is not ported "
-            "yet (ROADMAP queue 1, item 10)")
+        """Audit every plan currently cached for serving.
+
+        Runs :func:`repro_torch.analysis.verify_cache` — the full plan
+        invariants *plus* the static schedule checker and the device-table
+        audit — over the sparse FFN's LRU as it stands now, so a serving
+        loop can prove that re-admitted/re-targeted entries (not just
+        original insertions) still carry race-free, in-bounds,
+        deterministic schedules.  Returns the diagnostics ([] for engines
+        without a sparse FFN).
+        """
+        if self.sparse_ffn is None:
+            return []
+        from ..analysis import verify_cache
+
+        return list(verify_cache(self.sparse_ffn.plan_cache))
 
     def _sync_plan_stats(self):
         if self.sparse_ffn is None:

@@ -5,8 +5,10 @@ All six dataflows and the dense escape through
 versions) against JAX ``backend="pallas"`` in interpret mode, with
 ``rtol=atol=1e-4``; the plan-once contract (``PHASE1_COUNTERS``, no
 host→device copy of plan arrays on ``apply``); ``PlanCache``; ``mesh=``
-and ``partition=``; and the arguments whose machinery is not ported yet.
+and ``partition=``; the ``learned`` policy and the ``verify=`` gate.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,14 +20,9 @@ import repro_torch
 from repro_torch import (PHASE1_COUNTERS, PlanCache, SparseOperand,
                          compress_ffn, flexagon_plan, get_backend,
                          get_policy)
+from repro_torch.analysis import PlanVerificationError, errors_of, verify_plan
+from repro_torch.backends import CudaBackend
 from repro_torch.core.dataflows import DATAFLOWS
-
-
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
 
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -177,33 +174,73 @@ def test_mesh_and_partition_shard_the_plan(kwarg):
 
 
 @pytest.mark.parametrize("policy", ["learned"])
-def test_unported_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_policy(policy)
+def test_unported_policies_raise(policy, monkeypatch):
+    """``"learned"`` (which raised until the tune slice) resolves to one
+    ``LearnedPolicy``; without ``REPRO_TUNE_MODEL`` it is model-less and
+    plans through its heuristic fallback."""
+    from repro_torch.backends import policies
+    from repro_torch.tune import LearnedPolicy
+
+    monkeypatch.delenv("REPRO_TUNE_MODEL", raising=False)
+    monkeypatch.setattr(policies, "_NAMED", {})
+    pol = get_policy(policy)
+    assert isinstance(pol, LearnedPolicy) and get_policy(policy) is pol
+    a, b = _case(seed=0)
+    plan = flexagon_plan(a, b, block_shape=BS, backend="cuda", device="cpu",
+                         policy=policy)
+    assert plan.dataflow == flexagon_plan(
+        a, b, block_shape=BS, backend="cuda", device="cpu").dataflow
+    assert pol.fallbacks == 1 and pol.stats["model"] is None
+
+
+class _BadScheduleBackend(CudaBackend):
+    """A cuda backend whose ``prepare`` aims the first real run outside
+    the output grid: every plan it prepares is corrupt."""
+
+    name = "test-bad-schedule"
+
+    def prepare(self, plan):
+        aux = super().prepare(plan)
+        s = aux["stream_schedule"]
+        run_ci = np.asarray(s.run_ci).copy()
+        run_ci[0] = 10_000
+        aux["stream_schedule"] = dataclasses.replace(s, run_ci=run_ci)
+        return aux
 
 
 def test_verify_is_accepted(monkeypatch):
-    """``verify=`` is taken by every entry point, and until the verifier is
-    ported (ROADMAP item 10) asking for verification raises, whether by
-    ``verify=True`` or by the ``REPRO_VERIFY=1`` default."""
+    """``verify=True``, and the ``REPRO_VERIFY=1`` default, verify every
+    plan build: a clean plan passes, and a plan that a faulty backend
+    prepares raises ``PlanVerificationError`` in ``flexagon_plan``,
+    ``PlanCache.get`` and ``compress_ffn`` alike.  ``verify=False`` hands
+    out even the corrupt plan, which the verifier then flags."""
+    from repro_torch.backends.base import _REGISTRY
+
     a, b = _case(seed=0)
-    kw = dict(block_shape=BS, backend="cuda", device="cpu")
+    bad = _BadScheduleBackend()
+    monkeypatch.setitem(_REGISTRY, bad.name, bad)     # removed afterwards
+    kw = dict(block_shape=BS, device="cpu")
     params = {"w_gate": {"w": torch.ones(16, 16)},
               "w_up": {"w": torch.ones(16, 16)},
               "w_down": {"w": torch.ones(16, 16)},
               "block_mask": torch.ones(2, 2)}
     for env, verify in (("0", True), ("1", None)):
         monkeypatch.setenv("REPRO_VERIFY", env)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            flexagon_plan(a, b, verify=verify, **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            PlanCache().get(a, b, verify=verify, **kw)
-        with pytest.raises(NotImplementedError, match="item 10"):
+        plan = flexagon_plan(a, b, verify=verify, backend="cuda", **kw)
+        np.testing.assert_allclose(plan.apply(a, b).numpy(), a @ b, **TOL)
+        assert PlanCache().get(a, b, verify=verify, backend="cuda",
+                               **kw).dataflow == plan.dataflow
+        with pytest.raises(PlanVerificationError) as exc:
+            flexagon_plan(a, b, verify=verify, backend=bad, **kw)
+        assert "schedule-bounds" in {d.code for d in exc.value.diagnostics}
+        with pytest.raises(PlanVerificationError):
+            PlanCache().get(a, b, verify=verify, backend=bad, **kw)
+        with pytest.raises(PlanVerificationError):
             compress_ffn(params, tokens=4, block=8, device="cpu",
-                         verify=verify)
+                         backend=bad, verify=verify)
     monkeypatch.setenv("REPRO_VERIFY", "1")
-    plan = flexagon_plan(a, b, verify=False, **kw)
-    np.testing.assert_allclose(plan.apply(a, b).numpy(), a @ b, **TOL)
+    corrupt = flexagon_plan(a, b, verify=False, backend=bad, **kw)
+    assert errors_of(verify_plan(corrupt))
 
 
 def test_registry_has_both_backends():

@@ -83,7 +83,6 @@ def _rank_main(rank: int, world: int, store: str, out: str) -> int:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    os.environ["REPRO_VERIFY"] = "0"
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
@@ -210,13 +209,6 @@ ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
 #: each gloo rank's limit: a hung rendezvous fails its test, not the suite
 RANK_TIMEOUT_S = 120
-
-
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
 
 
 @pytest.fixture(scope="module")
@@ -747,8 +739,7 @@ def test_sharded_apply_records_its_path(ab):
 def _spawn(world, tmp):
     """Run ``world`` ranks of this file; every rank must exit 0 within
     RANK_TIMEOUT_S.  Returns each rank's results."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_VERIFY="0",
-               OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     store = tmp / "store"
     procs = [subprocess.Popen(
         [sys.executable, __file__, str(r), str(world), str(store),

@@ -54,13 +54,6 @@ SMALL, TINY, HUGE = (4096, 8192), (1024, 2048), (1 << 30, 1 << 30)
 TWO, FOUR, MANY = (20000, 40000), (10000, 40000), (5000, 20000)
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 def _budgets(tiers):
     return MemoryBudget(*tiers), JaxBudget(*tiers)
 

@@ -26,13 +26,6 @@ from repro_torch.core import workloads as twl
 from repro_torch.kernels import stream as tks
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 DATAFLOWS = tdf.DATAFLOWS
 SCHEDULE_FIELDS = ("a_slot", "b_slot", "cj", "is_first", "is_last", "run_id",
                    "run_ci", "run_cj", "real_w", "real_r", "oob")

@@ -44,13 +44,6 @@ SMALL = (4096, 8192)
 TINY = (1024, 2048)
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 def _case(seed=0, m=24, k=40, n=32, da=0.4, db=0.6):
     rng = np.random.default_rng(seed)
     a = random_sparse_dense(rng, (m, k), density=da, block_shape=BS[:2])
@@ -113,8 +106,9 @@ def test_named_policies():
     assert get_policy("simulator", "mixed") is get_policy("simulator")
     with pytest.raises(KeyError, match="unknown policy"):
         get_policy("nope")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_policy("learned")
+    from repro_torch.tune import LearnedPolicy
+
+    assert isinstance(get_policy("learned"), LearnedPolicy)
 
 
 @pytest.fixture
@@ -217,12 +211,29 @@ def test_autotune_select_block():
         pol.select_block(ctx, ())
 
 
-def test_unported_autotune_parts_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AutotunePolicy(db="/nonexistent/tune.json")
-    monkeypatch.setenv("REPRO_TUNE_DB", "tune.json")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AutotunePolicy()
+def test_unported_autotune_parts_raise(monkeypatch, tmp_path):
+    """Autotune's ``TuneDB`` (which raised until the tune slice): ``db=``
+    takes a path, ``REPRO_TUNE_DB`` is the default, and a second policy on
+    the same file answers from it without measuring."""
+    from repro_torch.tune import TuneDB
+
+    path = str(tmp_path / "tune.jsonl")
+    ctx = SelectionContext(
+        shape=LayerShape(16, 16, 16, 1.0, 1.0, BS), block_shape=BS,
+        occ_a=np.ones((2, 2), bool), occ_b=np.ones((2, 2), bool),
+        fingerprint="tune-db-test", backend=get_backend("reference"),
+        spec=DeviceSpec(), allowed=("ip_m", "gust_m"), device="cpu")
+    first = AutotunePolicy(reps=1, db=path)
+    assert isinstance(first.db, TuneDB) and first.db.path == path
+    choice = first.select(ctx)
+    assert first.measurements == 1 and len(first.db) == 1
+    monkeypatch.setenv("REPRO_TUNE_DB", path)
+    second = AutotunePolicy(reps=1)
+    assert second.db.path == path
+    assert second.select(ctx) == choice
+    assert second.measurements == 0 and second.db_hits == 1
+    monkeypatch.delenv("REPRO_TUNE_DB")
+    assert AutotunePolicy(reps=1).db is None
 
 
 def test_policies_select_with_a_mesh():

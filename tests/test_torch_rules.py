@@ -29,13 +29,6 @@ from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import stream as tks
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -20,13 +20,6 @@ from repro_torch.models import moe as tmoe
 from repro_torch.serve import Request, ServeEngine
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 ARCH = "granite-moe-1b-a400m"
 
 
@@ -136,8 +129,9 @@ def test_sparse_ffn_planned_at_admission():
     assert comp.plan_builds == builds + 1
     assert eng.stats["plan_builds"] == comp.plan_builds
     assert eng.stats["plan_hits"] == comp.plan_hits >= 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.verify_plans()
+    # every cached plan, the prefill shape admitted above included,
+    # re-verifies clean
+    assert eng.verify_plans() == []
 
 
 def test_engine_stats_copy_the_policy_stats():

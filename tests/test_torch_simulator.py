@@ -33,13 +33,6 @@ from repro_torch.core.selector import LayerShape
 BS = (8, 8, 8)
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 def _fields(x):
     return dataclasses.astuple(x)
 

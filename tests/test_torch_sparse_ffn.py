@@ -24,13 +24,6 @@ from repro_torch.convert import ffn_params_from_jax, sparse_operand_from_jax
 from repro_torch.core.selector import DeviceSpec
 
 
-@pytest.fixture(autouse=True)
-def _no_verify(monkeypatch):
-    # the port has no plan verifier yet (ROADMAP item 10): verify=True and
-    # REPRO_VERIFY=1 raise, so these tests plan with verification off
-    monkeypatch.setenv("REPRO_VERIFY", "0")
-
-
 TOL = dict(rtol=1e-4, atol=1e-4)
 SPEC = DeviceSpec(**dataclasses.asdict(TPUSpec()))
 
@@ -132,10 +125,38 @@ def test_sharded_compress_ffn_matches_jax(jax_params, kwarg):
         sparse_ffn_apply(comp, torch.as_tensor(x)).numpy(), want, **TOL)
 
 
-def test_unported_arguments_raise(jax_params):
+def test_unported_arguments_raise(jax_params, monkeypatch):
+    """``compress_ffn(verify=True)`` (which raised until the analysis
+    slice) verifies every plan it builds: clean plans give the unverified
+    build's output, and a plan that a faulty backend prepares raises."""
+    from repro_torch.analysis import PlanVerificationError
+    from repro_torch.backends import CudaBackend
+    from repro_torch.backends.base import _REGISTRY
+
+    class BadBackend(CudaBackend):
+        name = "test-bad-ffn-schedule"
+
+        def prepare(self, plan):
+            aux = super().prepare(plan)
+            s = aux["stream_schedule"]
+            a_slot = np.asarray(s.a_slot).copy()
+            a_slot[0] = 10_000            # gathers past the block stack
+            aux["stream_schedule"] = dataclasses.replace(s, a_slot=a_slot)
+            return aux
+
     params = ffn_params_from_jax(jax_params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compress_ffn(params, tokens=16, block=16, device="cpu", verify=True)
+    x = torch.as_tensor(_x(4))
+    checked = compress_ffn(params, tokens=16, block=16, backend="cuda",
+                           device="cpu", verify=True)
+    unchecked = compress_ffn(params, tokens=16, block=16, backend="cuda",
+                             device="cpu", verify=False)
+    torch.testing.assert_close(sparse_ffn_apply(checked, x),
+                               sparse_ffn_apply(unchecked, x))
+    bad = BadBackend()
+    monkeypatch.setitem(_REGISTRY, bad.name, bad)     # removed afterwards
+    with pytest.raises(PlanVerificationError):
+        compress_ffn(params, tokens=16, block=16, backend=bad.name,
+                     device="cpu", verify=True)
 
 
 @pytest.mark.parametrize("fmt", ["bcsr", "bcsc", "csr", "csc"])
