@@ -35,8 +35,8 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
 7. K3 (the MoE grouped matmul) against its plain version and an fp64
    product: bm 16, 64 and 128, bf16 and fp32 inputs, empty groups, groups
    larger than one tile, and the idle tiles of the device padding; then
-   granite's decode shapes, few-tile calls that take the K split, and rows
-   that are not 16-byte aligned;
+   granite's decode shapes, few-tile calls that take the K split, rows
+   that are not 16-byte aligned, and jamba's decode shapes;
 8. the serving path: granite-moe-1b-a400m at its published width (24
    layers, d_model 1024, 32 experts top-8, vocab 49155) with random bf16
    weights from a seed and the MoE dispatch set to ``sort``, serving 8
@@ -128,11 +128,39 @@ Phase 14 drives the analysis and tune layers (``repro_torch.analysis``,
     (d) ``AutotunePolicy(db=...)`` over Table 6, then a fresh policy on the
     same file: 9 DB hits, 0 sweeps, the same picks (gated).
 
+Phase 15 drives the rest of the model zoo at full width, one model at a
+time (each freed before the next is built), random bf16 weights from
+``SEED``:
+
+15. (a) jamba-v0.1-52b at its published widths and one of its four
+    published 8-layer periods (7 mamba + 1 attention layers, 4 MoE layers
+    of 16 experts top-2; 13.3 B parameters, the only cut), MoE dispatch
+    ``sort``, serving 8 requests of 32-128 prompt tokens, 16 new tokens
+    each, through a 4-slot ``ServeEngine`` (``max_seq`` 256).  K3's
+    launches over that run must be 3 x 4 x (prefills + decode steps); then
+    phase 9's path check on jamba (sort vs scatter logits within
+    LOGIT_TOL; every K3 call of one prefill and one decode step replayed
+    against its plain version and fp64, and timed beside
+    ``torch._grouped_mm`` and its bound, summed per prefill and per
+    decode; one profiled decode step's idle share), and a prompt
+    prefilled to n-4 tokens and decoded over the last 4, against
+    ``model.logits`` (top-16 ``scatter``, the same params) within
+    DECODE_TOL.
+    (b) rwkv6-3b at its published width and depth (32 layers, no kernel
+    runs): the same 8 requests, fp32 recurrent states after serving, and
+    the prefill-then-decode gate in bf16 (LOGIT_TOL) and in fp32
+    (FP32_DECODE_TOL).
+    (c) seamless-m4t-large-v2 (12 + 12 layers): frames (4, 96, 1024), a
+    BOS prefill and 16 greedy decode steps, against the teacher-forced
+    decoder within DECODE_TOL.
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
 ``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``, phase
-14's under ``analysis`` and ``tune``).  With
+14's under ``analysis`` and ``tune``, phase 15's under ``models``; the
+kernel line's K3 row keeps granite's replayed calls, and its ``launches``
+add jamba's).  With
 no CUDA device it exits 2 before printing any result.
 
     python3 chip_smoke.py --sweeps
@@ -155,6 +183,11 @@ collective) and prints no result lines.
 
 runs phases 1 and 14 alone (the build, then analysis and tune) and
 prints no result lines.
+
+    python3 chip_smoke.py --models
+
+runs phases 1 and 15 alone (the build, then jamba, rwkv6 and seamless),
+writes ``chiprun_out/chip_smoke_models.json`` and prints no result lines.
 """
 from __future__ import annotations
 
@@ -2053,10 +2086,12 @@ def _gmm_check(label, got, want, ref64, scatter):
 
 
 def _gmm_case(device, rng, sizes, k, n, bm, dtypes, bk=8, bn=8,
-              want_splits=None):
+              want_splits=None, w_scale=1.0):
     """One K3 sweep case on the device padding: each input type of
-    ``dtypes`` with output in it and in fp32.  Returns the worst
-    max|kernel - plain|."""
+    ``dtypes`` with output in it and in fp32.  Operands of more than 2**24
+    weights are drawn on the card (a generator seeded from ``rng``), the
+    rest by ``rng``; the weights are standard normal times ``w_scale``.
+    Returns the worst max|kernel - plain|."""
     import numpy as np
     import torch
 
@@ -2066,10 +2101,18 @@ def _gmm_case(device, rng, sizes, k, n, bm, dtypes, bk=8, bn=8,
     gids, scatter = mg.pad_groups_device(
         torch.tensor(sizes, device=device), bm, rows)
     real_tiles = sum(-(-s // bm) for s in sizes)
-    x = torch.as_tensor(rng.standard_normal((rows, k), np.float32),
-                        device=device)
-    w = torch.as_tensor(rng.standard_normal((len(sizes), k, n), np.float32),
-                        device=device)
+    if len(sizes) * k * n > 2 ** 24:
+        gen = torch.Generator(device=device).manual_seed(
+            int(rng.integers(2 ** 31)))
+        x = torch.randn((rows, k), generator=gen, device=device)
+        w = torch.randn((len(sizes), k, n), generator=gen,
+                        device=device) * w_scale
+    else:
+        x = torch.as_tensor(rng.standard_normal((rows, k), np.float32),
+                            device=device)
+        w = torch.as_tensor(rng.standard_normal((len(sizes), k, n),
+                                                np.float32),
+                            device=device) * w_scale
     worst = 0.0
     for dt in dtypes:
         xd, wd = x.to(dt), w.to(dt)
@@ -2105,8 +2148,9 @@ def gmm_sweep(device):
     groups of several tiles) plus a ragged case, on the device padding
     (idle tiles after the real ones); then granite's decode shapes (32
     rows over ~21 of 32 groups, no K split), calls with few tiles that
-    take the K split at bm 16 and 64, and rows that are not 16-byte
-    aligned (the element-wise load path)."""
+    take the K split at bm 16 and 64, rows that are not 16-byte aligned
+    (the element-wise load path), and jamba-v0.1-52b's decode shapes (8
+    rows over 16 experts, K/N 4096/14336 and 14336/4096, bf16 in)."""
     import numpy as np
     import torch
 
@@ -2137,6 +2181,22 @@ def gmm_sweep(device):
     for bm in (16, 64):
         worst = max(worst, _gmm_case(device, rng, [5, 20, 0, 3], 260, 100,
                                      bm, both, bk=4, bn=4))
+    # jamba decode: 4 slots x top-2 of 16 experts, at its widths, with
+    # weights at moe_init's scale 1/sqrt(K) as the served model has them
+    # (standard normal weights at these depths give rows in the hundreds,
+    # and the kernel's and cuBLAS's fp32 sums, in two orders, then differ
+    # on elements near zero by more than the fixed atol)
+    sizes = np.zeros(16, int)
+    for _ in range(4):
+        sizes[rng.choice(16, size=2, replace=False)] += 1
+    sizes = sizes.tolist()
+    log(f"sweep moe_gmm jamba decode routing: {sum(sizes)} rows over "
+        f"{sum(1 for s in sizes if s)} of 16 groups")
+    for k, n in ((4096, 14336), (14336, 4096)):
+        worst = max(worst, _gmm_case(device, rng, sizes, k, n, 16,
+                                     (torch.bfloat16,), want_splits=False,
+                                     w_scale=k ** -0.5))
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -2146,70 +2206,103 @@ def gmm_sweep(device):
 GRANITE = "granite-moe-1b-a400m"
 
 
-def _granite(device, strategy):
+def _with_moe(cfg, **changes):
     import dataclasses
 
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            **changes))
+
+
+def _granite(device, strategy):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config(GRANITE)
-    cfg = dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, strategy=strategy))
-    return build_model(cfg, device=device)
+    return build_model(_with_moe(get_config(GRANITE), strategy=strategy),
+                       device=device)
 
 
-def serve_granite(device):
-    """Serve 8 requests at granite's published width with sort dispatch.
+def _params(model, label):
+    """Random bf16 params from SEED on the model's device, logged."""
+    import torch
 
-    Returns (model, params, prompts, engine)."""
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{label}: {n_params / 1e9:.3f} B random bf16 params (seed {SEED}) "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def _prompts(vocab, seed, n=8):
+    """``n`` prompts of 32-128 tokens drawn from ``seed``."""
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(m))
+            for m in rng.integers(32, 129, size=n)]
+
+
+def _serve(model, params, prompts, label, new_tokens=16):
+    """Serve ``prompts`` through a 4-slot ``ServeEngine`` (``max_seq``
+    256), ``new_tokens`` each; gates every request's tokens.  Returns
+    (engine, row)."""
     import torch
 
     from repro_torch.obs import default_buckets
     from repro_torch.serve import Request, ServeEngine
 
-    model = _granite(device, "sort")
-    cfg = model.cfg
-    t0 = time.perf_counter()
-    params = model.init(seed=SEED, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"serve {GRANITE}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B random "
-        f"bf16 params (seed {SEED}) made in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED + 4)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n))
-               for n in rng.integers(32, 129, size=8)]
+    vocab = model.cfg.vocab
     engine = ServeEngine(model, params, slots=4, max_seq=256)
     # fine buckets (1% wide) so the printed quantiles are read to 1%
     engine.metrics.histogram("serve.latency.decode_step_s",
                              buckets=default_buckets(1e-4, 1e1, 200))
     t0 = time.perf_counter()
     for rid, p in enumerate(prompts):
-        engine.submit(Request(rid, p, max_new_tokens=16))
+        engine.submit(Request(rid, p, max_new_tokens=new_tokens))
     results = engine.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     new = sum(len(v) for v in results.values())
     for rid in sorted(results):
-        log(f"serve req {rid}: prompt {len(prompts[rid]):3d} tokens -> "
+        log(f"{label} req {rid}: prompt {len(prompts[rid]):3d} tokens -> "
             f"{results[rid]}")
-    if sorted(results) != list(range(8)) or any(
-            len(v) != 16 or not all(0 <= t < cfg.vocab for t in v)
+    if sorted(results) != list(range(len(prompts))) or any(
+            len(v) != new_tokens or not all(0 <= t < vocab for t in v)
             for v in results.values()):
-        raise SystemExit("serve: a request did not get 16 tokens in the "
-                         "vocabulary")
+        raise SystemExit(f"{label}: a request did not get {new_tokens} "
+                         "tokens in the vocabulary")
     lat = engine.latency_stats()
     dec = lat["serve.latency.decode_step_s"]
     pre = lat["serve.latency.prefill_s"]
-    log(f"serve: {len(results)} requests, {new} new tokens in {wall:.3f} s "
-        f"({new / wall:.1f} tok/s, prefills included); decode step p50 "
+    log(f"{label}: {len(results)} requests, {new} new tokens in {wall:.3f} "
+        f"s ({new / wall:.1f} tok/s, prefills included); decode step p50 "
         f"{dec['p50'] * 1e3:.2f} ms p99 {dec['p99'] * 1e3:.2f} ms (min "
         f"{dec['min'] * 1e3:.2f}, max {dec['max'] * 1e3:.2f}, "
         f"{dec['count']} steps); prefill mean {pre['mean'] * 1e3:.2f} ms "
         f"(min {pre['min'] * 1e3:.2f}, max {pre['max'] * 1e3:.2f}, "
         f"{pre['count']} prefills); stats {engine.stats}")
+    row = {"requests": len(results), "new_tokens": new, "wall_s": wall,
+           "tok_per_s": new / wall, "decode_p50_ms": dec["p50"] * 1e3,
+           "decode_p99_ms": dec["p99"] * 1e3,
+           "prefill_mean_ms": pre["mean"] * 1e3,
+           "prefills": engine.stats["prefills"],
+           "decode_steps": engine.stats["decode_steps"]}
+    return engine, row
+
+
+def serve_granite(device):
+    """Serve 8 requests at granite's published width with sort dispatch.
+
+    Returns (model, params, prompts, engine)."""
+    model = _granite(device, "sort")
+    cfg = model.cfg
+    params = _params(model, f"serve {GRANITE}: {cfg.n_layers} layers, "
+                     f"d_model {cfg.d_model}, {cfg.moe.num_experts} experts "
+                     f"top-{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab "
+                     f"{cfg.vocab}")
+    prompts = _prompts(cfg.vocab, SEED + 4)
+    engine, _ = _serve(model, params, prompts, "serve")
     return model, params, prompts, engine
 
 
@@ -2254,6 +2347,10 @@ class K3Recorder:
         self.moe.gmm, self.moe.pad_groups_device = self.gmm, self.pad
 
 
+def _moe_layers(cfg) -> int:
+    return sum(cfg.ffn_for_layer(i) == "moe" for i in range(cfg.n_layers))
+
+
 def path_check(model, params, prompts):
     """Sort (K3) vs scatter (einsum) logits on one prompt; returns the K3
     calls of that prefill and of one 4-slot decode step."""
@@ -2266,8 +2363,8 @@ def path_check(model, params, prompts):
     prompt = prompts[0][None]
     with K3Recorder() as rec:
         sort = model.prefill(params, prompt, model.init_cache(1, 256))[0]
-    scatter_model = dataclasses.replace(model, cfg=_granite(
-        model.device, "scatter").cfg)
+    scatter_model = dataclasses.replace(
+        model, cfg=_with_moe(model.cfg, strategy="scatter"))
     scat = scatter_model.prefill(params, prompt,
                                  scatter_model.init_cache(1, 256))[0]
     a, b = sort[0, -1].float(), scat[0, -1].float()
@@ -2283,13 +2380,13 @@ def path_check(model, params, prompts):
     with K3Recorder() as dec:
         engine.step()
     torch.cuda.synchronize()
-    step_breakdown(engine)
-    n = 3 * model.cfg.n_layers
+    breakdown = step_breakdown(engine)
+    n = 3 * _moe_layers(model.cfg)
     if len(rec.calls) != n or len(dec.calls) != n:
         raise SystemExit(f"path check: {len(rec.calls)} prefill and "
                          f"{len(dec.calls)} decode K3 calls, want {n} each")
     return ([("prefill", c) for c in rec.calls]
-            + [("decode", c) for c in dec.calls])
+            + [("decode", c) for c in dec.calls]), breakdown
 
 
 def step_breakdown(engine):
@@ -2327,12 +2424,16 @@ def step_breakdown(engine):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in by_family.most_common()))
     log("decode step top kernels: " + "; ".join(
         f"{k} {v:.3f} ms" for k, v in by_name.most_common(6)))
+    return {"wall_ms": wall, "busy_ms": busy, "events": len(events),
+            "idle_share": 1 - busy / wall,
+            "by_family_ms": dict(by_family)}
 
 
-def time_k3(calls, worst):
+def time_k3(calls, worst, label=f"one {GRANITE} prefill"):
     """Replay each recorded K3 call: bit for bit against the main path's,
     against its plain version and fp64, then timed beside the plain
-    version, ``torch._grouped_mm`` on the real rows, and its bound."""
+    version, ``torch._grouped_mm`` on the real rows, and its bound.
+    ``t["by_phase"]`` splits the sums by prefill and decode."""
     import torch
 
     from repro_torch.kernels import moe_gmm as mg
@@ -2343,7 +2444,7 @@ def time_k3(calls, worst):
             "torch._grouped_mm)")
     t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if has_lib else None,
          "bound_ms": 0.0, "bytes": 0.0, "operations": 0.0,
-         "calls": len(calls)}
+         "calls": len(calls), "by_phase": {}}
     fallbacks = []      # timings that fell back to CUDA events
     for i, (phase, c) in enumerate(calls):
         x, w, gids, kw = c["x"], c["w"], c["gids"], c["kw"]
@@ -2394,11 +2495,283 @@ def time_k3(calls, worst):
         t["plain_ms"] += plain_ms
         t["bound_ms"] += bound
         t[by] += bound
+        ph = t["by_phase"].setdefault(phase, {
+            "calls": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "library_ms": 0.0 if has_lib else None})
+        ph["calls"] += 1
+        ph["ms"] += ms
+        ph["plain_ms"] += plain_ms
+        ph["bound_ms"] += bound
+        if has_lib:
+            ph["library_ms"] += lib_ms
     log(f"K3 times sum over {len(calls)} calls (each the median of {REPS} "
-        "calls after 3 warm-up calls): one granite prefill and one 4-slot "
-        f"decode step; timings on CUDA events (with the host's gaps): "
+        f"calls after 3 warm-up calls): {label} and one 4-slot decode "
+        f"step; timings on CUDA events (with the host's gaps): "
         f"{sum(fallbacks)} of {len(fallbacks)}")
     return t, worst
+
+
+# -- phase 15 ----------------------------------------------------------------
+
+
+JAMBA = "jamba-v0.1-52b"
+RWKV = "rwkv6-3b"
+SEAMLESS = "seamless-m4t-large-v2"
+#: jamba on one card: one of its four published 8-layer periods (its 52 B
+#: parameters take ~104 GB in bf16); every width is the published one
+JAMBA_LAYERS = 8
+#: prefill-then-decode (and seamless's decode) against the teacher-forced
+#: forward, max|d| / max|logits|: the bound tests/test_models_decode.py
+#: holds the JAX package to
+DECODE_TOL = 3e-2
+#: positions decoded after the prefill in the prefill-then-decode gate
+DECODE_STEPS = 4
+#: rwkv6-3b's gate runs in fp32 (fp32 params and products): in bf16 its
+#: 32 layers amplify rounding, so that even two bf16 forwards of one
+#: prompt at two lengths disagree at a shared position by more than
+#: DECODE_TOL; the served bf16 model is held to LOGIT_TOL, the bound
+#: phase 9 gives bf16 noise at full width
+FP32_DECODE_TOL = 1e-4
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class Fp32Compute:
+    """While active, the port's ``dense`` and ``embedding_lookup`` compute
+    in fp32 (their default is bf16); restores the default on exit."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers
+
+        self.fns = (layers.dense, layers.embedding_lookup)
+        self.saved = [f.__defaults__ for f in self.fns]
+        for f in self.fns:
+            f.__defaults__ = (torch.float32,)
+        return self
+
+    def __exit__(self, *exc):
+        for f, d in zip(self.fns, self.saved):
+            f.__defaults__ = d
+
+
+def _decode_gate(model, params, prompt, label, tol=DECODE_TOL):
+    """Prefill all but the last DECODE_STEPS tokens of ``prompt``, decode
+    those one by one, and hold each step's logits (the prefill's too) to
+    ``model.logits`` of the whole prompt, the teacher-forced forward.
+    Returns the errors, max|d| / max|logits| each."""
+    n = len(prompt)
+    s0 = n - DECODE_STEPS
+    tokens = prompt[None]
+    full = model.logits(params, tokens)[0].float()
+    scale = float(full.abs().max())
+    cache = model.init_cache(1, 256)
+    logits, cache = model.prefill(params, tokens[:, :s0], cache)
+    errs = [float((logits[0, -1].float() - full[s0 - 1]).abs().max())
+            / scale]
+    for t in range(s0, n):
+        logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
+        errs.append(float((logits[0, -1].float() - full[t]).abs().max())
+                    / scale)
+    log(f"{label} prefill-then-decode: prompt {n} tokens, prefill {s0} then "
+        f"{DECODE_STEPS} decode steps against the forward, max|d|/max|logits|"
+        f" per position {[float(f'{e:.3g}') for e in errs]} (tol {tol:g})")
+    if max(errs) > tol:
+        raise SystemExit(f"{label}: decode differs from the forward by "
+                         f"{max(errs):.4f}")
+    return errs
+
+
+def _jamba(device, worst):
+    """jamba-v0.1-52b, one published period at full width, MoE on K3.
+    Returns (row, K3 launches of its serving run, worst K3 error)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.models import build_model
+
+    full = get_config(JAMBA)
+    cfg = _with_moe(dataclasses.replace(full, n_layers=JAMBA_LAYERS),
+                    strategy="sort")
+    model = build_model(cfg, device=device)
+    mixers = [cfg.mixer_for_layer(i) for i in range(cfg.n_layers)]
+    log(f"models {JAMBA}: depth cut from {full.n_layers} to {cfg.n_layers} "
+        f"layers, one of its {full.n_layers // len(full.pattern.mixers)} "
+        f"published periods (the only cut): {mixers.count('mamba')} mamba "
+        f"+ {mixers.count('attn')} attention layers, {_moe_layers(cfg)} MoE "
+        f"layers of {cfg.moe.num_experts} experts top-{cfg.moe.top_k}; "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, mamba "
+        f"d_state {cfg.mamba_d_state} d_conv {cfg.mamba_d_conv} expand "
+        f"{cfg.mamba_expand}; MoE dispatch sort (K3)")
+    params = _params(model, f"models {JAMBA}")
+    prompts = _prompts(cfg.vocab, SEED + 6)
+    mg.gmm.launches = 0
+    engine, row = _serve(model, params, prompts, f"models {JAMBA}")
+    torch.cuda.synchronize()
+    launches = mg.gmm.launches
+    want = 3 * _moe_layers(cfg) * (row["prefills"] + row["decode_steps"])
+    log(f"models {JAMBA}: K3 launched {launches} times; want 3 x "
+        f"{_moe_layers(cfg)} x ({row['prefills']} prefills + "
+        f"{row['decode_steps']} decode steps) = {want}")
+    if launches <= 0 or launches != want:
+        raise SystemExit(f"{JAMBA}: K3 launched {launches} times, want "
+                         f"{want}")
+    del engine
+    calls, row["step"] = path_check(model, params, prompts)
+    k3, worst = time_k3(calls, worst, label=f"one {JAMBA} prefill")
+    del calls
+    row["k3"] = {key: k3[key] for key in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "calls", "by_phase")}
+    row["k3"]["launches"] = launches
+    for phase, ph in k3["by_phase"].items():
+        lib = ph["library_ms"]
+        log(f"models {JAMBA} K3 per {phase}: {ph['calls']} calls, "
+            f"{ph['ms']:.4f} ms (plain {ph['plain_ms']:.4f}, "
+            f"torch._grouped_mm "
+            f"{'none' if lib is None else format(lib, '.4f')}, bound "
+            f"{ph['bound_ms']:.4f}; {ph['ms'] / ph['bound_ms']:.2f}x the "
+            "bound)")
+    # the decode gate at every expert and dense dispatch: the same params,
+    # no top-2 route for a bf16 difference to flip (as JAX's own test)
+    dense = dataclasses.replace(model, cfg=_with_moe(
+        cfg, top_k=cfg.moe.num_experts, strategy="scatter"))
+    row["decode_gate"] = _decode_gate(dense, params, prompts[0],
+                                      f"models {JAMBA} (top-"
+                                      f"{cfg.moe.num_experts}, scatter)")
+    row["layers"] = cfg.n_layers
+    row["params"] = sum(t.numel() for t in _leaves(params))
+    return row, launches, worst
+
+
+def _rwkv(device):
+    """rwkv6-3b at its published width and depth (no kernel runs)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(RWKV)
+    model = build_model(cfg, device=device)
+    log(f"models {RWKV}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
+        f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        "published width and depth")
+    params = _params(model, f"models {RWKV}")
+    prompts = _prompts(cfg.vocab, SEED + 7)
+    engine, row = _serve(model, params, prompts, f"models {RWKV}")
+    states = [t for c in engine.cache["layers"] for t in c.values()]
+    if any(t.dtype != torch.float32 or not bool(torch.isfinite(t).all())
+           for t in states):
+        raise SystemExit(f"{RWKV}: a recurrent state is not finite fp32 "
+                         "after serving")
+    log(f"models {RWKV}: {len(states)} recurrent state tensors, all fp32 "
+        "and finite after serving")
+    del engine
+    row["decode_gate_bf16"] = _decode_gate(
+        model, params, prompts[0], f"models {RWKV} bf16", tol=LOGIT_TOL)
+    row["params"] = sum(t.numel() for t in _leaves(params))
+    del params
+    _free()
+    params = model.init(seed=SEED)
+    with Fp32Compute():
+        row["decode_gate"] = _decode_gate(
+            model, params, prompts[0], f"models {RWKV} fp32",
+            tol=FP32_DECODE_TOL)
+    return row
+
+
+def _seamless(device):
+    """seamless-m4t-large-v2 at its published width and depth: frames ->
+    memory -> BOS prefill -> 16 greedy decode steps, against the
+    teacher-forced decoder."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dense, embedding_lookup, rmsnorm
+
+    cfg = get_config(SEAMLESS)
+    model = build_model(cfg, device=device)
+    log(f"models {SEAMLESS}: {model.n_enc} encoder + {model.n_dec} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; published width and depth")
+    params = _params(model, f"models {SEAMLESS}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    frames = torch.randn((4, 96, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    tokens = np.zeros((4, 1), np.int64)          # BOS
+    cache = model.init_cache(4, 256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"frames": frames,
+                                           "tokens": tokens}, cache)
+    outs, steps = [logits.float()], []
+    nxt = logits[:, -1].argmax(-1, keepdim=True).cpu().numpy()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(16):
+        tokens = np.concatenate([tokens, nxt], axis=1)
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, nxt)
+        nxt = logits[:, -1].argmax(-1, keepdim=True).cpu().numpy()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        outs.append(logits.float())
+    dec = torch.cat(outs, dim=1)
+    memory = model.encode(params, frames)
+    x = embedding_lookup(params["embed"], torch.as_tensor(tokens,
+                                                          device=device))
+    x = model._decoder_pass(params, x, torch.arange(tokens.shape[1],
+                                                    device=device), memory)
+    forced = dense(params["lm_head"],
+                   rmsnorm(params["final_norm"], x, cfg.norm_eps)).float()
+    err = float((dec - forced).abs().max() / forced.abs().max())
+    if not (0 <= tokens).all() or not (tokens < cfg.vocab).all():
+        raise SystemExit(f"{SEAMLESS}: a token outside the vocabulary")
+    log(f"models {SEAMLESS}: frames (4, 96, {cfg.d_model}), BOS prefill "
+        f"{prefill_ms:.2f} ms, 16 greedy decode steps p50 "
+        f"{float(np.median(steps)):.2f} ms (max {max(steps):.2f}); decode "
+        f"against the teacher-forced decoder max|d|/max|logits| = "
+        f"{err:.5f} (tol {DECODE_TOL:g}); tokens of row 0 "
+        f"{tokens[0].tolist()}")
+    if err > DECODE_TOL:
+        raise SystemExit(f"{SEAMLESS}: decode differs from the "
+                         f"teacher-forced decoder by {err:.4f}")
+    return {"prefill_ms": prefill_ms,
+            "decode_p50_ms": float(np.median(steps)),
+            "decode_max_ms": max(steps), "decode_gate": err,
+            "params": sum(t.numel() for t in _leaves(params))}
+
+
+def models_phase(device, worst):
+    """Phase 15: jamba (K3), rwkv6 and seamless at full width, each freed
+    before the next is built.  Returns (rows, jamba's K3 launches, the
+    worst K3 error)."""
+    t_phase = time.perf_counter()
+    rows = {}
+    t0 = time.perf_counter()
+    rows[JAMBA], launches, worst = _jamba(device, worst)
+    _free()
+    rows[JAMBA]["seconds"] = time.perf_counter() - t0
+    log(f"phase 15(a) {JAMBA} took {rows[JAMBA]['seconds']:.1f} s")
+    for name, fn in ((RWKV, _rwkv), (SEAMLESS, _seamless)):
+        t0 = time.perf_counter()
+        rows[name] = fn(device)
+        _free()
+        rows[name]["seconds"] = time.perf_counter() - t0
+        log(f"phase 15 {name} took {rows[name]['seconds']:.1f} s")
+    log(f"phase 15 (models) took {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, worst
 
 
 SOURCES = {
@@ -2460,6 +2833,14 @@ def main() -> int:
         dist_phase(device)
         log(f"dist done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
+    if "--models" in sys.argv[1:]:
+        # phases 1 and 15 alone: jamba, rwkv6 and seamless on the card
+        models, _, _ = models_phase(device, 0.0)
+        (OUT_DIR / "chip_smoke_models.json").write_text(json.dumps(
+            {"card": card, "models": models}, indent=1, default=str))
+        log(f"models done in {time.perf_counter() - t_start:.1f} s on "
+            f"{card}")
+        return 0
     if "--analysis" in sys.argv[1:]:
         # phases 1 and 14 alone: verification, traces, learned, TuneDB
         analysis_phase(device)
@@ -2512,7 +2893,8 @@ def main() -> int:
                          f"times, want {want}")
     launches["moe_gmm"] = serving["moe_gmm"]
     totals["moe_gmm"], worst["moe_gmm"] = time_k3(
-        path_check(model, params, prompts), worst["moe_gmm"])
+        path_check(model, params, prompts)[0], worst["moe_gmm"])
+    del model, params, prompts, engine
     log(f"phases 7-9 done at {time.perf_counter() - t_start:.1f} s")
 
     tiled = tiled_phase(device, operands)
@@ -2523,6 +2905,12 @@ def main() -> int:
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     analysis, tune = analysis_phase(device)
     log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    models, jamba_launches, worst["moe_gmm"] = models_phase(
+        device, worst["moe_gmm"])
+    launches["moe_gmm"] += jamba_launches
+    log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s; K3 "
+        f"launches on the serving paths: granite {serving['moe_gmm']} + "
+        f"{JAMBA} {jamba_launches} = {launches['moe_gmm']}")
 
     kernels = []
     for name, t in totals.items():
@@ -2544,7 +2932,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
          "pipeline": pipeline, "dist": dist, "analysis": analysis,
-         "tune": tune}, indent=1, default=str))
+         "tune": tune, "models": models}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

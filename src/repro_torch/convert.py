@@ -15,8 +15,8 @@ from .api import SparseOperand
 from .config import resolve_device
 from .core.formats import SparseFormat
 
-__all__ = ["ffn_params_from_jax", "lm_params_from_jax",
-           "sparse_operand_from_jax"]
+__all__ = ["encdec_params_from_jax", "ffn_params_from_jax",
+           "lm_params_from_jax", "sparse_operand_from_jax"]
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -69,7 +69,9 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg, *, device=None
     segment's period of block dicts whose leaves are stacked along a leading
     repeat axis; layer ``r * len(period) + j`` of a segment is repeat ``r``
     of period position ``j``.  The port keeps one block dict per layer, in
-    layer order.  ``device=None`` resolves to the card.
+    layer order.  A hybrid period (jamba: 8 layers, repeated 4 times at
+    full depth) and rwkv's block (its channel-mix params inside
+    ``mixer``) unstack the same way.  ``device=None`` resolves to the card.
     """
     dev = resolve_device(device)
     blocks = []
@@ -88,3 +90,21 @@ def _index(x, r):
     if isinstance(x, dict):
         return {k: _index(v, r) for k, v in x.items()}
     return x[r]
+
+
+def encdec_params_from_jax(tree: Dict[str, Any], cfg, *, device=None
+                           ) -> Dict[str, Any]:
+    """JAX ``EncDec.init`` params -> the port's, as tensors on ``device``.
+
+    JAX stacks ``encoder`` and ``decoder`` along a leading layer axis; the
+    port keeps a list with one layer dict each, in layer order.
+    ``device=None`` resolves to the card.
+    """
+    dev = resolve_device(device)
+    out = {name: _tree(value, dev) for name, value in tree.items()
+           if name not in ("encoder", "decoder")}
+    for name, n in (("encoder", cfg.n_encoder_layers),
+                    ("decoder", cfg.n_layers - cfg.n_encoder_layers)):
+        stacked = _tree(tree[name], dev)
+        out[name] = [_index(stacked, r) for r in range(n)]
+    return out

@@ -4,8 +4,10 @@ engine, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --smoke --requests 8 --slots 4 --max-new 16 [--device cpu]
 
-The flags are those of ``python -m repro.launch.serve`` plus ``--device``.
-Weights are random (seed 0); ``--seed`` draws the prompts.
+The flags are those of ``python -m repro.launch.serve`` plus ``--device``;
+``--arch`` takes every registered decoder-only arch (the encoder-decoder
+has no tokens-only prefill and is not served by the engine).  Weights are
+random (seed 0); ``--seed`` draws the prompts.
 """
 from __future__ import annotations
 
@@ -14,14 +16,18 @@ import argparse
 import numpy as np
 
 from .. import obs
-from ..configs import get_config
+from ..configs import ARCH_IDS, get_config
 from ..models import build_model
 from ..serve.engine import Request, ServeEngine
 
 
+#: the archs the engine serves: every registered decoder-only arch
+SERVABLE = [a for a in ARCH_IDS if get_config(a).kind != "encdec"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=SERVABLE)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

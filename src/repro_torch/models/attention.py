@@ -14,7 +14,7 @@ does in JAX, and keeps no copy of the old one.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,6 +58,14 @@ def _project_qkv(p, cfg, x, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, Dh) -> (B, S, Hkv * n_rep, Dh), each kv head repeated
+    ``n_rep`` times in place (``jnp.repeat`` along the head axis)."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, q_offset: int = 0,
                         block_q: int = 512, block_k: int = 1024,
@@ -72,8 +80,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     if not gqa_native and h != hkv:
-        k = torch.repeat_interleave(k, h // hkv, dim=2)
-        v = torch.repeat_interleave(v, h // hkv, dim=2)
+        k = _repeat_kv(k, h // hkv)
+        v = _repeat_kv(v, h // hkv)
         hkv = h
     n_rep = h // hkv
     sk = k.shape[1]
@@ -124,16 +132,26 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 
 def attn_apply(p, cfg, x, positions, *, window: Optional[int] = None,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                causal: bool = True) -> torch.Tensor:
     """Prefill/training attention.  x: (B, S, D).
 
-    Cross-attention (``cross_kv=``) belongs to the encoder-decoder, which
-    is not ported (ROADMAP queue 1, item 7).
+    ``cross_kv=(k, v)`` (each (B, S_mem, Hkv, Dh)) makes it
+    cross-attention: queries get no RoPE (qk-norm still applies), keys and
+    values come from the memory, and no causal mask is applied.
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    hq, dh = cfg.n_heads, cfg.head_dim
+    if cross_kv is not None:
+        q = dense(p["wq"], x).reshape(b, s, hq, dh)
+        if cfg.qk_norm:
+            q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
+        k, v = cross_kv
+        causal = False
+    else:
+        q, k, v = _project_qkv(p, cfg, x, positions)
     out = blockwise_attention(q, k, v, causal=causal, window=window)
-    return dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+    return dense(p["wo"], out.reshape(b, s, hq * dh))
 
 
 def init_attn_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,

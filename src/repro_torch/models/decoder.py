@@ -1,15 +1,19 @@
 """Decoder blocks and the layer stack.
 
-The port of ``repro.models.decoder`` for the ``attn``/``swa`` mixers with
-``dense`` or ``moe`` FFNs.  JAX stacks each segment's parameters along a
+The port of ``repro.models.decoder``: the ``attn``/``swa`` mixers with
+``dense`` or ``moe`` FFNs, the ``mamba`` mixer (jamba's hybrid periods)
+and the ``rwkv`` block.  JAX stacks each segment's parameters along a
 leading layer axis and scans over it; here the stack is a Python list with
 one parameter dict (and one cache dict) per layer, walked by a loop.
 :func:`repro_torch.convert.lm_params_from_jax` maps the stacked JAX layout
 onto it.
 
-A block is (pre-norm mixer → residual → pre-norm ffn → residual).  The
-``mamba`` and ``rwkv`` mixers are not ported yet (ROADMAP queue 1,
-item 7) and raise ``NotImplementedError``.
+A block is (pre-norm mixer → residual → pre-norm ffn → residual); the rwkv
+block replaces attention/FFN with time-mix/channel-mix.  Prefill and
+decode write each layer's new state into its cache tensors in place.  The
+recurrent states (mamba's ``conv``/``ssm``, rwkv's ``state``/``shift_*``)
+are fp32 whatever the cache's ``dtype``, as JAX's ``init_layer_cache``
+makes them.
 """
 from __future__ import annotations
 
@@ -19,28 +23,19 @@ import torch
 
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import mamba as mamba_mod
 from . import moe as moe_mod
+from . import rwkv6 as rwkv_mod
 from .layers import dense, rmsnorm, rmsnorm_init
 
 __all__ = ["stack_init", "stack_apply", "stack_cache", "stack_prefill",
            "stack_decode", "init_layer_cache"]
 
 Signature = Tuple[str, str]     # (mixer, ffn)
-_MIXERS = ("attn", "swa")
-
-
-def _check_mixer(mixer: str) -> None:
-    if mixer not in _MIXERS:
-        raise NotImplementedError(
-            f"mixer {mixer!r} is not ported yet (ROADMAP queue 1, item 7: "
-            "mamba and rwkv); the port runs 'attn' and 'swa'")
 
 
 def _signatures(cfg) -> List[Signature]:
-    sigs = [cfg.layer_signature(i) for i in range(cfg.n_layers)]
-    for mixer, _ in sigs:
-        _check_mixer(mixer)
-    return sigs
+    return [cfg.layer_signature(i) for i in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -51,14 +46,21 @@ def _signatures(cfg) -> List[Signature]:
 def _block_init(gen: torch.Generator, cfg, sig: Signature,
                 dtype=torch.float32):
     mixer, ffn = sig
-    _check_mixer(mixer)
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
-                         "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-                         "mixer": attn.attn_init(gen, cfg, dtype)}
-    if ffn == "moe":
-        p["ffn"] = moe_mod.moe_init(gen, cfg, dtype)
+                         "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device)}
+    if mixer in ("attn", "swa"):
+        p["mixer"] = attn.attn_init(gen, cfg, dtype)
+    elif mixer == "mamba":
+        p["mixer"] = mamba_mod.mamba_init(gen, cfg, dtype)
+    elif mixer == "rwkv":
+        p["mixer"] = rwkv_mod.rwkv_init(gen, cfg, dtype)
     else:
-        p["ffn"] = ffn_mod.ffn_init(gen, cfg, dtype)
+        raise ValueError(mixer)
+    if mixer != "rwkv":   # rwkv's channel-mix lives inside its params
+        if ffn == "moe":
+            p["ffn"] = moe_mod.moe_init(gen, cfg, dtype)
+        else:
+            p["ffn"] = ffn_mod.ffn_init(gen, cfg, dtype)
     return p
 
 
@@ -72,12 +74,31 @@ def _ffn(p, cfg, ffn: str, xn):
     return ffn_mod.ffn_apply(p["ffn"], cfg, xn)
 
 
+def _write(cache, **new):
+    """Copy each new state into its cache tensor (cast to its dtype)."""
+    for name, value in new.items():
+        cache[name].copy_(value)
+    return cache
+
+
 def _block_apply(p, cfg, sig: Signature, x, positions):
     mixer, ffn = sig
-    _check_mixer(mixer)
+    if mixer == "rwkv":
+        h, _, _ = rwkv_mod.rwkv_time_mix(
+            p["mixer"], cfg, rmsnorm(p["norm1"], x, cfg.norm_eps))
+        x = x + h
+        h, _ = rwkv_mod.rwkv_channel_mix(
+            p["mixer"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps))
+        return x + h
     xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attn.attn_apply(p["mixer"], cfg, xn, positions,
+    if mixer in ("attn", "swa"):
+        h = attn.attn_apply(p["mixer"], cfg, xn, positions,
                             window=_window(cfg, mixer))
+    elif mixer == "mamba":
+        h = mamba_mod.mamba_apply(p["mixer"], cfg, xn)
+    else:
+        raise ValueError(mixer)
+    x = x + h
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + _ffn(p, cfg, ffn, xn)
 
@@ -85,31 +106,56 @@ def _block_apply(p, cfg, sig: Signature, x, positions):
 def init_layer_cache(cfg, sig: Signature, batch: int, max_seq: int,
                      dtype=torch.bfloat16, device=None
                      ) -> Dict[str, torch.Tensor]:
-    """Zeroed per-layer cache for one signature."""
+    """Zeroed per-layer cache for one signature.  ``dtype`` is the K/V
+    dtype; recurrent states are fp32."""
     mixer, _ = sig
-    _check_mixer(mixer)
-    size = min(max_seq, cfg.swa_window) if mixer == "swa" else max_seq
-    c = attn.init_attn_cache(cfg, batch, size, dtype, device)
-    return {"k": c.k, "v": c.v}
+    if mixer in ("attn", "swa"):
+        size = min(max_seq, cfg.swa_window) if mixer == "swa" else max_seq
+        c = attn.init_attn_cache(cfg, batch, size, dtype, device)
+        return {"k": c.k, "v": c.v}
+    if mixer == "mamba":
+        c = mamba_mod.init_mamba_cache(cfg, batch, device=device)
+        return {"conv": c.conv, "ssm": c.ssm}
+    if mixer == "rwkv":
+        c = rwkv_mod.init_rwkv_cache(cfg, batch, device=device)
+        return {"state": c.state, "shift_t": c.shift_t, "shift_c": c.shift_c}
+    raise ValueError(mixer)
 
 
 def _block_prefill(p, cfg, sig: Signature, x, positions, cache):
-    """Prefill one block; the last ``cache_len`` tokens' K/V are written
-    into ``cache`` in place, at slots ``pos % cache_len``."""
+    """Prefill one block and write its state into ``cache`` in place: an
+    attention layer's last ``cache_len`` tokens' K/V at slots
+    ``pos % cache_len``, a recurrent layer's terminal state."""
     mixer, ffn = sig
-    _check_mixer(mixer)
+    if mixer == "rwkv":
+        xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        h, state, last_t = rwkv_mod.rwkv_time_mix(p["mixer"], cfg, xn)
+        x = x + h
+        xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        h, last_c = rwkv_mod.rwkv_channel_mix(p["mixer"], cfg, xn)
+        return x + h, _write(cache, state=state, shift_t=last_t,
+                             shift_c=last_c)
     xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    s = x.shape[1]
-    cache_len = cache["k"].shape[1]
-    q, k, v = attn._project_qkv(p["mixer"], cfg, xn, positions)
-    h = attn.blockwise_attention(q, k, v, causal=True,
-                                 window=_window(cfg, mixer))
-    h = dense(p["mixer"]["wo"],
-              h.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim))
-    kk, vv = k[:, -cache_len:], v[:, -cache_len:]
-    slots = positions[-kk.shape[1]:] % cache_len
-    cache["k"][:, slots] = kk.to(cache["k"].dtype)
-    cache["v"][:, slots] = vv.to(cache["v"].dtype)
+    if mixer in ("attn", "swa"):
+        s = x.shape[1]
+        cache_len = cache["k"].shape[1]
+        q, k, v = attn._project_qkv(p["mixer"], cfg, xn, positions)
+        h = attn.blockwise_attention(q, k, v, causal=True,
+                                     window=_window(cfg, mixer))
+        h = dense(p["mixer"]["wo"],
+                  h.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim))
+        kk, vv = k[:, -cache_len:], v[:, -cache_len:]
+        slots = positions[-kk.shape[1]:] % cache_len
+        cache["k"][:, slots] = kk.to(cache["k"].dtype)
+        cache["v"][:, slots] = vv.to(cache["v"].dtype)
+    elif mixer == "mamba":
+        # the terminal state comes from the same scan as the output; JAX
+        # runs the scan again for it (_mamba_terminal_state), which gives
+        # the same values
+        h, conv, ssm = mamba_mod._mamba_forward(p["mixer"], cfg, xn)
+        _write(cache, conv=conv, ssm=ssm)
+    else:
+        raise ValueError(mixer)
     x = x + h
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + _ffn(p, cfg, ffn, xn), cache
@@ -117,14 +163,34 @@ def _block_prefill(p, cfg, sig: Signature, x, positions, cache):
 
 def _block_decode(p, cfg, sig: Signature, x, pos, cache):
     mixer, ffn = sig
-    _check_mixer(mixer)
+    if mixer == "rwkv":
+        c = rwkv_mod.RwkvCache(cache["state"], cache["shift_t"],
+                               cache["shift_c"])
+        xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        h, state, last_t = rwkv_mod.rwkv_time_decode(p["mixer"], cfg, xn, c)
+        x = x + h
+        xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        h, last_c = rwkv_mod.rwkv_channel_decode(p["mixer"], cfg, xn, c)
+        return x + h, _write(cache, state=state, shift_t=last_t,
+                             shift_c=last_c)
     xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    h, c = attn.attn_decode(p["mixer"], cfg, xn, pos,
-                            attn.AttnCache(cache["k"], cache["v"]),
-                            window=_window(cfg, mixer))
+    if mixer in ("attn", "swa"):
+        h, c = attn.attn_decode(p["mixer"], cfg, xn, pos,
+                                attn.AttnCache(cache["k"], cache["v"]),
+                                window=_window(cfg, mixer))
+        cache = {"k": c.k, "v": c.v}
+    elif mixer == "mamba":
+        h, c = mamba_mod.mamba_decode(
+            p["mixer"], cfg, xn,
+            mamba_mod.MambaCache(cache["conv"], cache["ssm"]))
+        # JAX's cache takes the conv state in the activations' dtype; the
+        # fp32 cache holds the same bf16-rounded values
+        _write(cache, conv=c.conv, ssm=c.ssm)
+    else:
+        raise ValueError(mixer)
     x = x + h
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, ffn, xn), {"k": c.k, "v": c.v}
+    return x + _ffn(p, cfg, ffn, xn), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Unified language-model API: init / logits / loss / prefill / decode.
 
-The port of ``repro.models.lm`` for decoder-only archs with ``attn``/``swa``
-mixers and dense or MoE FFNs.  The encoder-decoder (``kind="encdec"``) is
-not ported yet (ROADMAP queue 1, item 7) and raises.
+The port of ``repro.models.lm``: decoder-only archs (dense, MoE, hybrid
+Mamba/attention, RWKV, early-fusion VLM — all token-frontend), and
+``build_model`` hands the encoder-decoder (``kind="encdec"``) to
+:class:`repro_torch.models.encdec.EncDec`, as JAX's does.
 
-An :class:`LM` lives on one device: ``build_model(cfg)`` puts it on the
-card, ``build_model(cfg, device="cpu")`` on the CPU.  Token inputs may be
-numpy arrays or tensors.
+A model lives on one device: ``build_model(cfg)`` puts it on the card,
+``build_model(cfg, device="cpu")`` on the CPU.  Token inputs may be numpy
+arrays or tensors.
 """
 from __future__ import annotations
 
@@ -38,9 +39,6 @@ class LM:
     device: Any = None
 
     def __post_init__(self):
-        if self.cfg.kind == "encdec":
-            raise NotImplementedError(
-                "kind='encdec' is not ported yet (ROADMAP queue 1, item 7)")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -112,7 +110,12 @@ class LM:
         return logits, {"layers": layers, "pos": pos + 1}
 
 
-def build_model(cfg, device=None) -> LM:
-    """The model for ``cfg`` on ``device`` (``None``: the card)."""
+def build_model(cfg, device=None):
+    """The model for ``cfg`` on ``device`` (``None``: the card): an
+    :class:`~repro_torch.models.encdec.EncDec` for ``kind="encdec"``, else
+    an :class:`LM`."""
+    if cfg.kind == "encdec":
+        from .encdec import EncDec
+        return EncDec(cfg, device)
     return LM(cfg, device)
 

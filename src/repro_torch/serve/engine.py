@@ -19,6 +19,14 @@ Phase 1 runs at admission, not per step:
   construction (``decode_ffn``) and for each new prefill length at
   admission (``stats["plan_builds"]`` / ``stats["plan_hits"]``).
 
+Every decoder-only arch is served: attention layers keep K/V in the
+engine's ``dtype``; mamba (``conv``/``ssm``) and rwkv (``state``/
+``shift_*``) layers keep fp32 recurrent states whatever ``dtype`` is, as
+the model's ``init_cache`` makes them.  A slot write or reset finds each
+leaf's batch dim by shape and casts into the leaf's dtype.  The
+encoder-decoder has no tokens-only prefill and is not served here, as in
+JAX.
+
 JAX's ``jax.jit`` of the decode closure has no counterpart: the port runs
 eagerly.  The model writes the cache tensors in place, so the engine holds
 exactly one cache.  Telemetry goes through :mod:`repro_torch.obs`: each

@@ -3,9 +3,9 @@
 A copy of ``repro.tune.corpus`` with the port's ``DeviceSpec`` in place of
 ``DeviceSpec``.  Its labels come from the port's ``SimulatorPolicy``, whose
 picks equal the JAX package's, so the corpus is the reference's record for
-record.  Of ``CONFIG_ARCHS`` the port has smollm-360m and qwen2-1.5b;
-mixtral-8x7b is skipped as an unknown config, so a full (not ``quick``)
-corpus lacks its records.
+record.  The port registers every arch of ``CONFIG_ARCHS``, so a full (not
+``quick``) corpus holds the same config-derived records as JAX's,
+mixtral-8x7b's included.
 
 The training data for :class:`repro_torch.tune.learned.LearnedPolicy` is a
 sweep of the repo's two *accurate* selection policies over a family of

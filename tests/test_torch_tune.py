@@ -113,6 +113,24 @@ def test_corpus_byte_equal(small_corpus):
         == jax_corpus_matrices(theirs)[0].tobytes()
 
 
+@pytest.mark.parametrize("block", [(16, 16, 16), (32, 32, 32)])
+def test_full_corpus_config_specs_equal_jax(block):
+    """The full (not ``quick``) corpus's config-derived specs equal JAX's
+    spec for spec: every arch of ``CONFIG_ARCHS`` is registered in the
+    port, mixtral-8x7b included."""
+    from repro.tune import corpus as jax_corpus
+    from repro_torch.tune import corpus as port_corpus
+
+    assert port_corpus.CONFIG_ARCHS == jax_corpus.CONFIG_ARCHS
+    mine = [s.meta() for s in port_corpus._config_specs(
+        np.random.default_rng(11), quick=False, block_shape=block)]
+    theirs = [s.meta() for s in jax_corpus._config_specs(
+        np.random.default_rng(11), quick=False, block_shape=block)]
+    assert mine == theirs
+    origins = {m["origin"].split(":")[1] for m in mine}
+    assert origins == set(jax_corpus.CONFIG_ARCHS)
+
+
 @pytest.mark.parametrize("kind", ["tree", "forest"])
 def test_fits_byte_equal(small_corpus, kind):
     mine = fit_examples(small_corpus, model=kind, n_trees=4).model
