@@ -154,13 +154,48 @@ time (each freed before the next is built), random bf16 weights from
     BOS prefill and 16 greedy decode steps, against the teacher-forced
     decoder within DECODE_TOL.
 
+Phase 16 trains (``repro_torch.train``, ``repro_torch.launch.train``),
+the MoE on K3 forward and backward and on K3w for the weight gradient:
+
+16. (a) K3w and K3's backward (``GroupedMatmul``) against their plain
+    versions on the card: bm 16, 64 and 128, bf16 and fp32, empty groups,
+    groups of several tiles, partial tiles and the device padding's idle
+    tiles, rows not 16-byte aligned, then granite's training shapes (4096
+    tokens x top-8 over 32 experts, (K, N) = (1024, 512) and (512, 1024));
+    K3w against fp64 too, and ``gmm``'s dx and dw by autograd against
+    autograd through ``gmm_plain`` and against fp64; one ``sort`` MoE
+    layer of granite's
+    width must have a grad_fn and gradients for x, the router and the three
+    expert weights.
+    (b) granite-moe-1b-a400m at its published width and depth with MoE
+    ``sort``, fp32 master params from SEED, remat, batch 8 x 512 tokens of
+    the port's ``SyntheticLM`` stream, peak LR TRAIN_LR with a warmup of
+    TRAIN_STEPS // 10 steps, through ``launch.train.train`` for
+    TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY: every
+    loss and grad norm finite, the mean loss of the last 5 steps below the
+    first, K3 launched exactly 3 x 24 x 3 and K3w 3 x 24 times each step;
+    then a run resumed from the step-10 checkpoint, whose params must equal
+    the uninterrupted run's at step 10 bit for bit and whose first batch
+    must equal its batch at step 10.  Reports step-time p50/p99,
+    tokens/s, peak memory, one profiled step's device busy time and idle
+    share by kernel family, and the first MoE layer's K3/K3w calls of one
+    step replayed against their plain versions and timed beside
+    ``torch._grouped_mm`` and their bounds, with the dx transpose copies.
+    (c) one step's loss and per-leaf gradients at full width through
+    ``sort`` and through ``scatter`` on the same params and a 2 x 128 token
+    batch: in bf16 within GRAD_TOL_BF16 and with the model in fp32 within
+    GRAD_TOL_FP32 of each leaf's largest gradient.
+    (d) three steps with ``grad_compression``: finite losses and non-zero
+    error-feedback residuals.
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
 ``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``, phase
-14's under ``analysis`` and ``tune``, phase 15's under ``models``; the
-kernel line's K3 row keeps granite's replayed calls, and its ``launches``
-add jamba's).  With
+14's under ``analysis`` and ``tune``, phase 15's under ``models``, phase
+16's under ``train``; the kernel line's K3 row keeps granite's replayed
+serving calls, and its ``launches`` add jamba's and the training run's;
+the K3w row holds the training replay and the training run's launches).  With
 no CUDA device it exits 2 before printing any result.
 
     python3 chip_smoke.py --sweeps
@@ -183,6 +218,12 @@ collective) and prints no result lines.
 
 runs phases 1 and 14 alone (the build, then analysis and tune) and
 prints no result lines.
+
+    python3 chip_smoke.py --train
+
+runs phases 1 and 16 alone (the build, then K3's gradient and granite
+training), writes ``chiprun_out/chip_smoke_train.json`` and prints no
+result lines.
 
     python3 chip_smoke.py --models
 
@@ -2063,10 +2104,12 @@ def _gmm_ref64(x_real, w, sizes):
         (0, w.shape[2]), dtype=torch.float64, device=w.device)
 
 
-def _gmm_check(label, got, want, ref64, scatter):
-    """Kernel vs plain (fp32 out: rtol = atol = TOL; bf16 out: one bf16
-    ulp) and the real rows vs fp64; raises on a miss.  Returns
-    (max|kernel - plain|, the real rows' error relative to fp64)."""
+def _tensor_check(label, got, want, ref64=None, rows=None):
+    """A kernel's tensor against its plain version (fp32 out: rtol = atol =
+    TOL; bf16 out: one bf16 ulp) and, given ``ref64``, ``got``'s ``rows``
+    (all rows by default) against fp64 (REL_TOL, or BF16_REL_TOL for bf16);
+    raises on a miss.  Returns (max|kernel - plain|, the error relative to
+    fp64)."""
     import torch
 
     err = float((got.float() - want.float()).abs().max()) \
@@ -2078,10 +2121,12 @@ def _gmm_check(label, got, want, ref64, scatter):
         ok = torch.allclose(got.float(), want.float(), rtol=BF16_ULP,
                             atol=TOL)
         rel_tol = BF16_REL_TOL
-    rel = _rel_err(got[scatter.long()], ref64) if ref64.numel() else 0.0
+    rel = 0.0
+    if ref64 is not None and ref64.numel():
+        rel = _rel_err(got if rows is None else got[rows.long()], ref64)
     if not ok or rel > rel_tol:
-        raise SystemExit(f"moe_gmm {label}: max|kernel-plain|={err:.3e}, "
-                         f"rel err vs fp64 {rel:.2e} (tol {rel_tol:g})")
+        raise SystemExit(f"{label}: max|kernel-plain|={err:.3e}, rel err vs "
+                         f"fp64 {rel:.2e} (tol {rel_tol:g})")
     return err, rel
 
 
@@ -2131,7 +2176,8 @@ def _gmm_case(device, rng, sizes, k, n, bm, dtypes, bk=8, bn=8,
             torch.cuda.synchronize()
             label = (f"bm={bm} K={k} N={n} sizes={sizes} in={dt} "
                      f"out={out_dt}")
-            err, rel = _gmm_check(label, got, want, ref64, scatter)
+            err, rel = _tensor_check(f"moe_gmm {label}", got, want, ref64,
+                                     scatter)
             if got[real_tiles * bm:].any():
                 raise SystemExit(f"moe_gmm {label}: an idle tile wrote "
                                  "non-zero rows")
@@ -2380,7 +2426,7 @@ def path_check(model, params, prompts):
     with K3Recorder() as dec:
         engine.step()
     torch.cuda.synchronize()
-    breakdown = step_breakdown(engine)
+    _, breakdown = step_breakdown("decode step", engine.step)
     n = 3 * _moe_layers(model.cfg)
     if len(rec.calls) != n or len(dec.calls) != n:
         raise SystemExit(f"path check: {len(rec.calls)} prefill and "
@@ -2389,10 +2435,11 @@ def path_check(model, params, prompts):
             + [("decode", c) for c in dec.calls]), breakdown
 
 
-def step_breakdown(engine):
-    """Where one 4-slot decode step's time goes: wall time on the host
-    clock (the step ends in a sync), device time by kernel family from the
-    profiler, and the device's idle share of the step."""
+def step_breakdown(label, fn, top=6):
+    """Where one step's time goes: ``fn()`` under the profiler, its wall
+    time on the host clock (ending in a sync), device time by kernel
+    family and by name, and the device's idle share of the step.  Returns
+    (``fn``'s result, row)."""
     from collections import Counter
 
     import torch
@@ -2403,13 +2450,15 @@ def step_breakdown(engine):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         t0 = time.perf_counter()
-        engine.step()
+        out = fn()
+        torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_family, by_name = Counter(), Counter()
     for e in events:
         name = e.name.lower()
-        family = ("K3 gmm" if "gmm_" in name
+        family = ("K3w wgrad" if "wgrad_" in name
+                  else "K3 gmm" if "gmm_" in name
                   else "matmul" if ("gemm" in name or "cutlass" in name
                                     or "sm90" in name)
                   else "copy/fill" if ("memcpy" in name or "memset" in name
@@ -2418,15 +2467,16 @@ def step_breakdown(engine):
         by_family[family] += e.device_time_total / 1e3
         by_name[e.name[:60]] += e.device_time_total / 1e3
     busy = sum(by_family.values())
-    log(f"decode step breakdown: wall {wall:.2f} ms, device busy "
+    log(f"{label} breakdown: wall {wall:.2f} ms, device busy "
         f"{busy:.3f} ms over {len(events)} device events (idle share "
         f"{1 - busy / wall:.3f}); by family "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in by_family.most_common()))
-    log("decode step top kernels: " + "; ".join(
-        f"{k} {v:.3f} ms" for k, v in by_name.most_common(6)))
-    return {"wall_ms": wall, "busy_ms": busy, "events": len(events),
-            "idle_share": 1 - busy / wall,
-            "by_family_ms": dict(by_family)}
+    log(f"{label} top kernels: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in by_name.most_common(top)))
+    return out, {"wall_ms": wall, "busy_ms": busy, "events": len(events),
+                 "idle_share": 1 - busy / wall,
+                 "by_family_ms": dict(by_family),
+                 "top_kernels_ms": dict(by_name.most_common(top))}
 
 
 def time_k3(calls, worst, label=f"one {GRANITE} prefill"):
@@ -2456,8 +2506,8 @@ def time_k3(calls, worst, label=f"one {GRANITE} prefill"):
             raise SystemExit(f"moe_gmm {phase} call {i}: the replay differs "
                              "from the main path's result")
         x_real = x[scatter]
-        err, rel = _gmm_check(f"{phase} call {i}", got, want,
-                              _gmm_ref64(x_real, w, sizes), scatter)
+        err, rel = _tensor_check(f"moe_gmm {phase} call {i}", got, want,
+                                 _gmm_ref64(x_real, w, sizes), scatter)
         worst = max(worst, err)
         ms, how = _device_ms(functools.partial(mg.gmm, x, w, gids, **kw))
         fallbacks.append(how == "events")
@@ -2774,6 +2824,700 @@ def models_phase(device, worst):
     return rows, launches, worst
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+#: the training run: steps of the uninterrupted run, and its checkpoint
+#: period (the resumed run starts from the first checkpoint)
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 10
+#: its peak learning rate, ``TrainConfig``'s default.  At 3e-3 (the
+#: launcher's default, which the CPU smoke runs use) the full-width model's
+#: loss rose over these 20 steps on an H100; at 3e-4 it falls.  The
+#: stream's next token is an affine map over granite's 49,155 tokens, too
+#: many to learn in 20 steps of 4,096 tokens, so the loss falls slowly
+TRAIN_LR = 3e-4
+#: sort vs scatter gradients of one step, max|d| / max|g| per leaf.  fp32
+#: (the MoE on K3's and K3w's fp32 kernels): the same sums in other orders;
+#: a 24-layer granite at d_model 256 on the CPU differed by 4e-6.  bf16:
+#: both paths round at different points, and a top-8 route that sits on a
+#: near tie flips between them; the same model in bf16 on the CPU differed
+#: by up to 0.18 on a leaf (a router; median 0.04), and the bound allows
+#: about twice that for the full width
+GRAD_TOL_FP32 = 1e-4
+GRAD_TOL_BF16 = 0.4
+
+
+def _k3_launches():
+    from repro_torch.kernels import moe_gmm as mg
+
+    return {"moe_gmm": mg.gmm.launches,
+            "moe_gmm_wgrad": mg.gmm_wgrad.launches}
+
+
+def _wgrad_ref64(x_real, dy_real, sizes):
+    """fp64 dw of the real rows, grouped in order: (G, K, N)."""
+    import torch
+
+    out = torch.zeros((len(sizes), x_real.shape[1], dy_real.shape[1]),
+                      dtype=torch.float64, device=x_real.device)
+    start = 0
+    for g, size in enumerate(sizes):
+        out[g] = (x_real[start:start + size].double().T
+                  @ dy_real[start:start + size].double())
+        start += size
+    return out
+
+
+def _routed_sizes(rng, tokens, experts, top_k):
+    """Rows per expert of ``tokens`` tokens each routed to ``top_k``
+    distinct experts drawn uniformly."""
+    import numpy as np
+
+    picks = np.argsort(rng.random((tokens, experts)), axis=1)[:, :top_k]
+    return np.bincount(picks.ravel(), minlength=experts).tolist()
+
+
+def _grad_case(device, rng, sizes, k, n, bm, dtypes):
+    """K3w and the Function's backward on one device padding (idle tiles
+    after the real ones; dy zero on the padding rows, as ``_moe_sort``'s
+    backward gives it): K3w against its plain version and fp64 for each
+    input type with output in it and in fp32; then ``gmm``'s dx and dw by
+    autograd against autograd through ``gmm_plain``, with the launches
+    the backward makes (one K3 for dx, one K3w).  Returns the worst
+    max|kernel - plain| of K3w and of dx."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+
+    rows, groups = sum(sizes), len(sizes)
+    gids, scatter = mg.pad_groups_device(
+        torch.tensor(sizes, device=device), bm, rows)
+    sc = scatter.long()
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(2 ** 31)))
+    # dy at 1/sqrt(the largest group's rows), so each dw element is O(1)
+    # as the weights are: a dw element sums one group's rows, and at
+    # training shapes (~1,000 rows a group) unit-normal x and dy give sums
+    # near 30 whose fp32 sum-order differences pass the fixed atol (on an
+    # H100 unit-normal dy gave 2.9e-4 against it, at 1.7e-6 of fp64)
+    x = torch.randn((rows, k), generator=gen, device=device)
+    dy = torch.randn((rows, n), generator=gen, device=device) \
+        * max(sizes) ** -0.5
+    w = torch.randn((groups, k, n), generator=gen, device=device) * k ** -0.5
+    padded = gids.numel() * bm
+    worst_w = worst_dx = 0.0
+    for dt in dtypes:
+        xp = torch.zeros((padded, k), dtype=dt, device=device)
+        dyp = torch.zeros((padded, n), dtype=dt, device=device)
+        xp[sc], dyp[sc] = x.to(dt), dy.to(dt)
+        ref64 = _wgrad_ref64(x.to(dt), dy.to(dt), sizes)
+        for out_dt in sorted({dt, torch.float32}, key=str):
+            got = mg.gmm_wgrad(xp, dyp, gids, groups, bm=bm,
+                               out_dtype=out_dt)
+            want = mg.gmm_wgrad_plain(xp, dyp, gids, groups, bm=bm,
+                                      out_dtype=out_dt)
+            torch.cuda.synchronize()
+            label = (f"bm={bm} K={k} N={n} groups={groups} rows={rows} "
+                     f"in={dt} out={out_dt}")
+            err, rel = _tensor_check(f"moe_gmm_wgrad {label}", got, want,
+                                     ref64)
+            for g, size in enumerate(sizes):
+                if size == 0 and got[g].any():
+                    raise SystemExit(f"moe_gmm_wgrad {label}: empty group "
+                                     f"{g} has a non-zero gradient")
+            log(f"sweep moe_gmm_wgrad {label} tiles={gids.numel()} "
+                f"max|kernel-plain|={err:.3e} rel vs fp64 {rel:.1e} ok")
+            worst_w = max(worst_w, err)
+        # the Function on the card against autograd through gmm_plain
+        wd = w.to(dt)
+        before = _k3_launches()
+        leaves = [xp.clone().requires_grad_(True),
+                  wd.clone().requires_grad_(True)]
+        out = mg.gmm(*leaves, gids, bm=bm, bk=k, bn=n)
+        if out.grad_fn is None:
+            raise SystemExit("gmm on the card: the result has no grad_fn")
+        out.backward(dyp)
+        torch.cuda.synchronize()
+        made = {key: v - before[key] for key, v in _k3_launches().items()}
+        if made != {"moe_gmm": 2, "moe_gmm_wgrad": 1}:
+            raise SystemExit(f"gmm forward + backward launched {made}, want "
+                             "2 K3 (forward, dx) and 1 K3w")
+        plain = [xp.clone().requires_grad_(True),
+                 wd.clone().requires_grad_(True)]
+        mg.gmm_plain(*plain, gids, bm=bm, bk=k, bn=n).backward(dyp)
+        dx64 = mg.gmm_plain(dyp.double(), wd.double().transpose(1, 2)
+                            .contiguous(), gids, bm=bm, bk=n, bn=k)
+        for name, a, b, r64 in (
+                ("dx", leaves[0].grad, plain[0].grad, dx64),
+                ("dw", leaves[1].grad, plain[1].grad, ref64)):
+            err, _ = _tensor_check(f"GroupedMatmul {name} bm={bm} K={k} "
+                                   f"N={n} {dt}", a, b, r64)
+            if name == "dx":
+                worst_dx = max(worst_dx, err)
+            else:
+                worst_w = max(worst_w, err)
+        log(f"sweep GroupedMatmul bm={bm} K={k} N={n} groups={groups} "
+            f"{dt}: dx, dw vs autograd through gmm_plain and vs fp64 ok; "
+            f"backward launches {made}")
+    return worst_w, worst_dx
+
+
+def _moe_layer_grads(device):
+    """One ``sort`` MoE layer of granite's width on the card, bf16: its
+    output has a grad_fn and the gradient reaches x, the router and the
+    three expert weights (finite, not all zero)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = _with_moe(get_config(GRANITE), strategy="sort")
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    p = moe.moe_init(gen, cfg, torch.bfloat16)
+    for leaf in _leaves(p):
+        leaf.requires_grad_(True)
+    x = torch.randn((256, cfg.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16).requires_grad_(True)
+    out = moe._moe_sort(p, cfg, x)
+    if out.grad_fn is None:
+        raise SystemExit("sort MoE on the card: the output has no grad_fn")
+    out.float().square().sum().backward()
+    grads = {"x": x.grad, "router": p["router"]["w"].grad,
+             **{k: p[k].grad for k in ("w_gate", "w_up", "w_down")}}
+    for name, g in grads.items():
+        if g is None or not torch.isfinite(g).all() or not g.any():
+            raise SystemExit(f"sort MoE on the card: no usable gradient for "
+                             f"{name}")
+    log(f"sort MoE layer on the card (256 tokens, bf16): grad_fn "
+        f"{type(out.grad_fn).__name__}; gradients reach "
+        + ", ".join(f"{k} (max|g| {float(g.float().abs().max()):.3g})"
+                    for k, g in grads.items()))
+
+
+def grad_sweep(device):
+    """Phase 16(a): K3w and K3's backward against their plain versions on
+    the card.  Returns the worst max|kernel - plain| of K3w and of K3's
+    dx."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 16)
+    both = (torch.bfloat16, torch.float32)
+    worst_w = worst_dx = 0.0
+
+    def run(sizes, k, n, bm, dtypes=both):
+        nonlocal worst_w, worst_dx
+        a, b = _grad_case(device, rng, sizes, k, n, bm, dtypes)
+        worst_w, worst_dx = max(worst_w, a), max(worst_dx, b)
+
+    for bm in (16, 64, 128):
+        for sizes in ([8, 16, 0, 24], [0, 0, 8], [32]):
+            run([s * bm // 8 for s in sizes], 256, 200, bm)
+        run([bm // 2 + 3, 0, 2 * bm + 1, 1], 256, 200, bm)   # partial tiles
+    run([5, 20, 0, 3], 260, 100, 16)          # rows not 16-byte aligned
+    # granite's training shapes: 4096 tokens x top-8 over 32 experts
+    sizes = _routed_sizes(rng, 4096, 32, 8)
+    log(f"sweep training routing: {sum(sizes)} rows over {len(sizes)} "
+        f"experts, {min(sizes)}-{max(sizes)} each")
+    for k, n in ((1024, 512), (512, 1024)):
+        run(sizes, k, n, 16)
+        torch.cuda.empty_cache()
+    _moe_layer_grads(device)
+    return worst_w, worst_dx
+
+
+def _train_cfg():
+    from repro_torch.configs import get_config
+
+    return _with_moe(get_config(GRANITE), strategy="sort")
+
+
+class TrainRecorder:
+    """While active, records the K3 forward calls of the first MoE layer
+    of a step (the first three ``_moe_sort`` makes), the group sizes and
+    scatter index of its padding, and the backward products of the last
+    three ``GroupedMatmul`` backward passes (the first layer's, the last a
+    backward reaches): each K3w call with the K3 ``dx`` call the same
+    backward made just before it.  It wraps the MoE module's names and the
+    kernel module's private ``_k3`` and ``_k3w``; the launch counters, on
+    the public ``gmm`` and ``gmm_wgrad``, are untouched."""
+
+    def __enter__(self):
+        import collections
+
+        from repro_torch.kernels import moe_gmm as mg
+        from repro_torch.models import moe
+
+        self.moe, self.mg = moe, mg
+        self.gmm, self.pad = moe.gmm, moe.pad_groups_device
+        self.k3, self.wgrad = mg._k3, mg._k3w
+        self.forward, self.pads, last = [], [], {}
+        self.backward = collections.deque(maxlen=3)
+
+        def pad(group_sizes, bm, rows):
+            out = self.pad(group_sizes, bm, rows)
+            if not self.pads:
+                self.pads.append((group_sizes, out[1]))
+            return out
+
+        def gmm(x, w, group_ids, **kw):
+            out = self.gmm(x, w, group_ids, **kw)
+            if len(self.forward) < 3:
+                self.forward.append(dict(x=x.detach(), w=w.detach(),
+                                         gids=group_ids, kw=kw,
+                                         out=out.detach()))
+            return out
+
+        def k3(*args):
+            last["k3"] = args
+            return self.k3(*args)
+
+        def wgrad(x, dy, group_ids, groups, bm, out_dtype):
+            self.backward.append(dict(dx=last.pop("k3"), x=x, dy=dy,
+                                      gids=group_ids, groups=groups,
+                                      kw=dict(bm=bm, out_dtype=out_dtype)))
+            return self.wgrad(x, dy, group_ids, groups, bm, out_dtype)
+
+        moe.gmm, moe.pad_groups_device = gmm, pad
+        mg._k3, mg._k3w = k3, wgrad
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.gmm, self.moe.pad_groups_device = self.gmm, self.pad
+        self.mg._k3, self.mg._k3w = self.k3, self.wgrad
+
+
+def _bound(r, k, n, active, tiles, elem=2):
+    """(ms, side) of one grouped product of ``r`` real rows: bytes of the
+    real rows in and out, the ``active`` groups' (K, N) slabs and the tile
+    ids at HBM_BYTES_PER_S; 2 r K N bf16 operations at BF16_FLOP_PER_S."""
+    nbytes = elem * (r * k + active * k * n + r * n) + 4 * tiles
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * r * k * n / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _library(label, fn, check):
+    """``torch._grouped_mm`` as a yardstick: (ms, max|library - kernel|),
+    or (None, None) where the installed torch lacks it or refuses these
+    operands (logged)."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, None
+    try:
+        got = fn()
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"library {label}: torch._grouped_mm refused: "
+            f"{str(e).splitlines()[0][:160]}")
+        return None, None
+    return _device_ms(fn)[0], float((got.float() - check.float()).abs().max())
+
+
+def time_train_k3(rec, n_moe):
+    """Replay the recorded first-layer calls of one training step: the
+    three K3 forwards (bit for bit against the step's own results), the
+    three K3 ``dx`` products on the transposed weights (with the transpose
+    copy timed on its own) and the three K3w products, each against its
+    plain version and timed beside it, ``torch._grouped_mm`` on the real
+    rows and its bound.  Returns per-kernel rows summed over the replayed
+    calls and the per-step estimate (x ``n_moe`` layers; forwards twice,
+    for the recompute under remat)."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+
+    sizes_t, scatter = rec.pads[0]
+    sizes = sizes_t.tolist()
+    sc = scatter.long()
+    offs = torch.cumsum(sizes_t, 0).to(torch.int32)
+    r, active = sc.numel(), sum(1 for s in sizes if s)
+    tiles = rec.forward[0]["gids"].numel()
+    if not all(torch.equal(b["gids"], rec.forward[0]["gids"])
+               for b in rec.backward):
+        raise SystemExit("remat: the recomputed routing of the first MoE "
+                         "layer differs from its forward")
+    rows = {}
+
+    def add(name, ms, plain_ms, lib_ms, bound, side, err, extra=""):
+        t = rows.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                   "library_ms": 0.0, "bound_ms": 0.0,
+                                   "bytes": 0.0, "operations": 0.0,
+                                   "calls": 0, "max_abs_err": 0.0})
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["library_ms"] = None if lib_ms is None or t["library_ms"] is None \
+            else t["library_ms"] + lib_ms
+        t["bound_ms"] += bound
+        t[side] += bound
+        t["calls"] += 1
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        log(f"time train {name:13s} call {t['calls']} rows={r} "
+            f"tiles={tiles} groups={active} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound:.5f} ({side}) "
+            f"library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"max|kernel-plain|={err:.2e}{extra}")
+
+    for c in rec.forward:
+        x, w, gids, kw = c["x"], c["w"], c["gids"], c["kw"]
+        got = mg.gmm(x, w, gids, **kw)
+        if not torch.equal(got, c["out"]):
+            raise SystemExit("train replay: K3 differs from the step's own "
+                             "forward")
+        err, _ = _tensor_check("train K3 forward", got,
+                               mg.gmm_plain(x, w, gids, **kw))
+        (k, n) = w.shape[1:]
+        lib_ms, lib_err = _library(
+            "forward", lambda: torch._grouped_mm(x[sc], w, offs=offs),
+            got[sc])
+        add("moe_gmm fwd", _device_ms(lambda: mg.gmm(x, w, gids, **kw))[0],
+            _device_ms(lambda: mg.gmm_plain(x, w, gids, **kw))[0], lib_ms,
+            *_bound(r, k, n, active, tiles), err,
+            "" if lib_err is None else f" max|library-kernel|={lib_err:.2e}")
+    for c in rec.backward:
+        dyw, wt, gids, bm, bk, bn, out_dt = c["dx"]
+        (n, k) = wt.shape[1:]
+        # the transpose copy of the slab, the other way (the same bytes)
+        t_ms = _device_ms(lambda: wt.transpose(1, 2).contiguous())[0]
+        got = mg.gmm(dyw, wt, gids, bm=bm, bk=bk, bn=bn, out_dtype=out_dt)
+        err, _ = _tensor_check("train K3 dx", got, mg.gmm_plain(
+            dyw, wt, gids, bm=bm, bk=bk, bn=bn, out_dtype=out_dt))
+        lib_ms, lib_err = _library(
+            "dx", lambda: torch._grouped_mm(dyw[sc], wt, offs=offs), got[sc])
+        add("moe_gmm dx", _device_ms(lambda: mg.gmm(
+            dyw, wt, gids, bm=bm, bk=bk, bn=bn, out_dtype=out_dt))[0],
+            _device_ms(lambda: mg.gmm_plain(
+                dyw, wt, gids, bm=bm, bk=bk, bn=bn, out_dtype=out_dt))[0],
+            lib_ms, *_bound(r, n, k, active, tiles), err,
+            f" transpose_ms={t_ms:.4f}"
+            + ("" if lib_err is None else
+               f" max|library-kernel|={lib_err:.2e}"))
+        rows["moe_gmm dx"]["transpose_ms"] = \
+            rows["moe_gmm dx"].get("transpose_ms", 0.0) + t_ms
+        x, dy, g, kw = c["x"], c["dy"], c["groups"], c["kw"]
+        got = mg.gmm_wgrad(x, dy, gids, g, **kw)
+        err, _ = _tensor_check("train K3w", got,
+                               mg.gmm_wgrad_plain(x, dy, gids, g, **kw))
+        lib_ms, lib_err = _library(
+            "dw", lambda: torch._grouped_mm(x[sc].t(), dy[sc], offs=offs),
+            got)
+        add("moe_gmm_wgrad",
+            _device_ms(lambda: mg.gmm_wgrad(x, dy, gids, g, **kw))[0],
+            _device_ms(lambda: mg.gmm_wgrad_plain(x, dy, gids, g, **kw))[0],
+            lib_ms, *_bound(r, x.shape[1], dy.shape[1], active, tiles), err,
+            "" if lib_err is None else f" max|library-kernel|={lib_err:.2e}")
+    per_step = {
+        "moe_gmm_ms": n_moe * (2 * rows["moe_gmm fwd"]["ms"]
+                               + rows["moe_gmm dx"]["ms"]),
+        "transpose_ms": n_moe * rows["moe_gmm dx"]["transpose_ms"],
+        "moe_gmm_wgrad_ms": n_moe * rows["moe_gmm_wgrad"]["ms"]}
+    log(f"train K3 replay of the first MoE layer ({REPS} timed calls each, "
+        f"median): per step x {n_moe} layers (forwards twice, for the "
+        f"recompute) K3 {per_step['moe_gmm_ms']:.3f} ms, transposes "
+        f"{per_step['transpose_ms']:.3f} ms, K3w "
+        f"{per_step['moe_gmm_wgrad_ms']:.3f} ms")
+    return rows, per_step
+
+
+def _quantiles(xs):
+    import numpy as np
+
+    return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99)))
+
+
+def train_granite(device):
+    """Phase 16(b): granite-moe-1b-a400m at full width through
+    ``launch.train.train``, MoE ``sort``, fp32 master params from SEED,
+    remat; TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY, then
+    a run resumed from the first checkpoint.  Returns (row, the K3 and
+    K3w launches of the uninterrupted run, the last state)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.launch.train import train
+
+    cfg = _train_cfg()
+    tcfg = TrainConfig(global_batch=8, seq_len=512, lr=TRAIN_LR,
+                       warmup_steps=TRAIN_STEPS // 10,
+                       total_steps=TRAIN_STEPS, remat=True, seed=SEED)
+    n_moe = _moe_layers(cfg)
+    want = {"moe_gmm": 3 * n_moe * 3, "moe_gmm_wgrad": 3 * n_moe}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        counts, seen = [], {}
+
+        def on_step(step, state, batch):
+            counts.append(_k3_launches())
+            if step == TRAIN_CKPT_EVERY:
+                # the trainer makes new tensors each step: no copy needed
+                seen["params"], seen["batch"] = state.params, batch
+
+        log(f"train {GRANITE}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.top_k} (sort), vocab {cfg.vocab}; batch "
+            f"{tcfg.global_batch} x {tcfg.seq_len} tokens, fp32 master "
+            f"params, remat, {TRAIN_STEPS} steps, checkpoint every "
+            f"{TRAIN_CKPT_EVERY}")
+        mg.gmm.launches = 0
+        mg.gmm_wgrad.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist = train(cfg, tcfg, steps=TRAIN_STEPS,
+                            ckpt_dir=str(work / "run"),
+                            ckpt_every=TRAIN_CKPT_EVERY, log_every=5,
+                            device=device, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _k3_launches()
+        peak = torch.cuda.max_memory_allocated()
+        counts.append(launches)
+        deltas = [{k: b[k] - a[k] for k in b} for a, b in
+                  zip(counts, counts[1:])]
+        log(f"train launches per step: {deltas[0]} (want {want}); total "
+            f"{launches}")
+        if any(d != want for d in deltas):
+            raise SystemExit(f"train: per-step launches {deltas}, want "
+                             f"{want} every step")
+        losses = [h["loss"] for h in hist]
+        gnorms = [h["grad_norm"] for h in hist]
+        if not np.all(np.isfinite(losses + gnorms)):
+            raise SystemExit(f"train: a loss or grad norm is not finite: "
+                             f"{losses} {gnorms}")
+        last5 = float(np.mean(losses[-5:]))
+        log(f"train losses {[round(v, 4) for v in losses]}; grad norms "
+            f"{[round(v, 3) for v in gnorms]}; mean of the last 5 "
+            f"{last5:.4f} vs first {losses[0]:.4f}")
+        if not last5 < losses[0]:
+            raise SystemExit("train: the loss did not fall")
+        steady = [h["dt"] for h in hist[1:]]
+        p50, p99 = _quantiles(steady)
+        tokens = tcfg.global_batch * tcfg.seq_len
+        log(f"train step time p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms "
+            f"over steps 1-{TRAIN_STEPS - 1} (step 0 {hist[0]['dt']:.2f} s); "
+            f"{tokens / p50:.0f} tokens/s at p50; run {wall:.1f} s with "
+            f"checkpoints; peak memory {peak / 2 ** 30:.2f} GiB")
+        del state
+
+        # resume from the first checkpoint, in a directory of its own
+        resumed = work / "resume"
+        resumed.mkdir()
+        name = f"step_{TRAIN_CKPT_EVERY:08d}"
+        shutil.copytree(work / "run" / name, resumed / name)
+        shutil.rmtree(work / "run")
+        first = {}
+
+        def on_first(step, state, batch):
+            first.setdefault("at", (step, state.params, batch))
+
+        t0 = time.perf_counter()
+        state, hist2 = train(cfg, tcfg, steps=TRAIN_STEPS,
+                             ckpt_dir=str(resumed),
+                             ckpt_every=TRAIN_STEPS + 1, resume=True,
+                             log_every=5, device=device, on_step=on_first)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        step, params, batch = first["at"]
+        same = step == TRAIN_CKPT_EVERY and all(
+            torch.equal(a, b) for a, b in zip(tree_flatten(params),
+                                              tree_flatten(seen["params"])))
+        same_batch = sorted(batch) == sorted(seen["batch"]) and all(
+            batch[k].tobytes() == seen["batch"][k].tobytes() for k in batch)
+        src = make_batch_iterator(cfg, tcfg, start_step=TRAIN_CKPT_EVERY)
+        stream = next(src)
+        src.close()
+        same_stream = all(stream[k].tobytes() == batch[k].tobytes()
+                          for k in stream)
+        d_loss = hist2[0]["loss"] - losses[TRAIN_CKPT_EVERY]
+        log(f"train resume: restored step {step}, params bit-equal to the "
+            f"run's at step {TRAIN_CKPT_EVERY}: {same}; first batch equal "
+            f"to the run's: {same_batch} (and to the stream's: "
+            f"{same_stream}); its loss {hist2[0]['loss']:.6f} vs the run's "
+            f"{losses[TRAIN_CKPT_EVERY]:.6f} (d {d_loss:.2e}); "
+            f"{len(hist2)} steps in {resume_s:.1f} s")
+        if not (same and same_batch and same_stream):
+            raise SystemExit("train resume: the restored state or batch "
+                             "differs from the uninterrupted run's")
+        del params, seen
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    row = {"steps": TRAIN_STEPS, "tokens_per_step": tokens,
+           "losses": losses, "grad_norms": gnorms, "step_p50_ms": p50 * 1e3,
+           "step_p99_ms": p99 * 1e3, "first_step_s": hist[0]["dt"],
+           "tokens_per_s_p50": tokens / p50, "run_s": wall,
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "launches_per_step": want, "resume_s": resume_s,
+           "resume_loss_diff": d_loss, "resume_losses":
+           [h["loss"] for h in hist2]}
+    return row, launches, state, tcfg
+
+
+def train_profile(device, state, tcfg):
+    """One recorded and one profiled step from ``state``; then the
+    recorded first-layer K3/K3w calls replayed."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+
+    cfg = _train_cfg()
+    step_fn = make_train_step(build_model(cfg, device=device), tcfg)
+    src = SyntheticLM(vocab=cfg.vocab, batch=tcfg.global_batch,
+                      seq_len=tcfg.seq_len, seed=tcfg.seed)
+    with TrainRecorder() as rec:
+        state, _ = step_fn(state, src.batch_at(TRAIN_STEPS))
+    batch = src.batch_at(TRAIN_STEPS + 1)
+    (state, _), breakdown = step_breakdown(
+        "train step", lambda: step_fn(state, batch), top=8)
+    del state
+    with torch.no_grad():
+        rows, per_step = time_train_k3(rec, _moe_layers(cfg))
+    return breakdown, rows, per_step
+
+
+def grad_path_check(device):
+    """Phase 16(c): one step's loss and per-leaf gradients of granite at
+    full width through ``sort`` (K3, K3w) and through ``scatter``
+    (``torch.einsum``, no kernel), on the same fp32 params from SEED and
+    one batch of 2 x 128 tokens: in bf16 (the served compute) and with the
+    model in fp32 (K3's and K3w's fp32 kernels)."""
+    import contextlib
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg = _train_cfg()
+    sort = build_model(cfg, device=device)
+    scatter = dataclasses.replace(sort, cfg=_with_moe(cfg,
+                                                      strategy="scatter"))
+    params = sort.init(seed=SEED)
+    batch = SyntheticLM(vocab=cfg.vocab, batch=2, seq_len=128,
+                        seed=SEED + 16).batch_at(0)
+    tcfg = TrainConfig(global_batch=2, seq_len=128)
+    names = _leaf_names(params)
+    rows = {}
+    for label, ctx, tol in (("bf16", contextlib.nullcontext(), GRAD_TOL_BF16),
+                            ("fp32", Fp32Compute(), GRAD_TOL_FP32)):
+        with ctx:
+            before = _k3_launches()
+            ls, gs = loss_and_grads(sort, tcfg, params, batch)
+            torch.cuda.synchronize()
+            made = {k: v - before[k] for k, v in _k3_launches().items()}
+            lc, gc = loss_and_grads(scatter, tcfg, params, batch)
+            torch.cuda.synchronize()
+        if min(made.values()) <= 0:
+            raise SystemExit(f"grad path check {label}: sort launched "
+                             f"{made}")
+        gaps = []
+        for name, a, b in zip(names, tree_flatten(gs), tree_flatten(gc)):
+            if "/ffn/" in name and (not torch.isfinite(a).all()
+                                    or not a.any()):
+                raise SystemExit(f"grad path check {label}: {name} has no "
+                                 "usable sort gradient")
+            gaps.append((float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max().clamp_min(1e-30)),
+                         name))
+        worst, where = max(gaps)
+        med = statistics.median(g for g, _ in gaps)
+        d_loss = abs(float(ls) - float(lc)) / abs(float(lc))
+        log(f"grad path check {label}: sort vs scatter over {len(gaps)} "
+            f"leaves, max|d|/max|g| worst {worst:.3e} ({where}), median "
+            f"{med:.3e} (tol {tol:g}); loss {float(ls):.6f} vs "
+            f"{float(lc):.6f} (rel {d_loss:.1e}); sort launches {made}")
+        if worst > tol:
+            raise SystemExit(f"grad path check {label}: sort and scatter "
+                             f"gradients differ by {worst:.3e} at {where}")
+        rows[label] = {"worst": worst, "where": where, "median": med,
+                       "loss_rel": d_loss, "tol": tol, "launches": made}
+    return rows
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in the checkpointer's flatten order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_names(tree[k],
+                                                             f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def compression_run(device):
+    """Phase 16(d): three steps with int8 gradient compression: finite
+    losses and live error-feedback residuals."""
+    import math
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import train
+
+    tcfg = TrainConfig(global_batch=8, seq_len=512, lr=TRAIN_LR,
+                       warmup_steps=1, total_steps=3, remat=True,
+                       grad_compression=True, seed=SEED)
+    state, hist = train(_train_cfg(), tcfg, steps=3, log_every=1,
+                        device=device)
+    live = sum(1 for e in tree_flatten(state.ef) if bool(e.abs().max() > 0))
+    losses = [h["loss"] for h in hist]
+    log(f"train --grad-compression: losses {losses}; error-feedback leaves "
+        f"non-zero {live} of {len(tree_flatten(state.ef))}")
+    if not all(math.isfinite(v) for v in losses) or live == 0:
+        raise SystemExit("grad compression: a loss is not finite or the "
+                         "error feedback is all zero")
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ef_live_leaves": live}
+
+
+def train_phase(device):
+    """Phase 16: training on the card.  Returns (rows, the launches of the
+    uninterrupted run, the K3w kernel row's timings and worst error, the
+    worst dx error)."""
+    t_phase = time.perf_counter()
+    worst_w, worst_dx = grad_sweep(device)
+    _free()
+    log(f"phase 16(a) took {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    run, launches, state, tcfg = train_granite(device)
+    breakdown, k3_rows, per_step = train_profile(device, state, tcfg)
+    del state
+    _free()
+    log(f"phase 16(b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths = grad_path_check(device)
+    _free()
+    log(f"phase 16(c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    comp = compression_run(device)
+    _free()
+    log(f"phase 16(d) took {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 16 (train) took {seconds:.1f} s")
+    worst_w = max(worst_w, k3_rows["moe_gmm_wgrad"]["max_abs_err"])
+    worst_dx = max(worst_dx, k3_rows["moe_gmm dx"]["max_abs_err"])
+    rows = {"run": run, "breakdown": breakdown, "k3_replay": k3_rows,
+            "k3_per_step": per_step, "grad_paths": paths,
+            "compression": comp, "worst_wgrad_err": worst_w,
+            "worst_dx_err": worst_dx, "seconds": seconds}
+    return rows, launches, k3_rows["moe_gmm_wgrad"], worst_w, worst_dx
+
+
 SOURCES = {
     "stream_spmm": ("src/repro_torch/csrc/stream_spmm.cu",
                     "src/repro/kernels/stream.py:330"),
@@ -2781,6 +3525,9 @@ SOURCES = {
                           "src/repro/kernels/stream.py:415"),
     "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
                 "src/repro/kernels/moe_gmm.py:31"),
+    "moe_gmm_wgrad": ("src/repro_torch/csrc/moe_gmm.cu",
+                      "src/repro/models/moe.py:179 (no TPU kernel: XLA's "
+                      "gradient of jax.lax.ragged_dot)"),
 }
 
 
@@ -2840,6 +3587,13 @@ def main() -> int:
             {"card": card, "models": models}, indent=1, default=str))
         log(f"models done in {time.perf_counter() - t_start:.1f} s on "
             f"{card}")
+        return 0
+    if "--train" in sys.argv[1:]:
+        # phases 1 and 16 alone: K3's gradient and granite training
+        train, _, _, _, _ = train_phase(device)
+        (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(
+            {"card": card, "train": train}, indent=1, default=str))
+        log(f"train done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
     if "--analysis" in sys.argv[1:]:
         # phases 1 and 14 alone: verification, traces, learned, TuneDB
@@ -2911,6 +3665,14 @@ def main() -> int:
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s; K3 "
         f"launches on the serving paths: granite {serving['moe_gmm']} + "
         f"{JAMBA} {jamba_launches} = {launches['moe_gmm']}")
+    train, train_launches, totals["moe_gmm_wgrad"], \
+        worst["moe_gmm_wgrad"], worst_dx = train_phase(device)
+    worst["moe_gmm"] = max(worst["moe_gmm"], worst_dx)
+    launches["moe_gmm"] += train_launches["moe_gmm"]
+    launches["moe_gmm_wgrad"] = train_launches["moe_gmm_wgrad"]
+    log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s; K3 "
+        f"launches of the training run {train_launches['moe_gmm']} (total "
+        f"{launches['moe_gmm']}), K3w {launches['moe_gmm_wgrad']}")
 
     kernels = []
     for name, t in totals.items():
@@ -2928,11 +3690,16 @@ def main() -> int:
     log(f"moe_gmm: bound = sum over its calls of max(bytes at "
         f"{HBM_BYTES_PER_S:g} B/s, bf16 operations at {BF16_FLOP_PER_S:g}/s)"
         f"; library = torch._grouped_mm on the real rows; on {card}")
+    log("moe_gmm_wgrad: the first MoE layer's three calls of one training "
+        "step, replayed; bound and library as moe_gmm's (library: "
+        "torch._grouped_mm's 2-D x 2-D form, none where it is missing or "
+        "refuses the operands)")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
          "pipeline": pipeline, "dist": dist, "analysis": analysis,
-         "tune": tune, "models": models}, indent=1, default=str))
+         "tune": tune, "models": models, "train": train}, indent=1,
+        default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,10 @@ aten operator it dispatches:
   shape depends on the data (``nonzero``, ``masked_select``, ``unique``,
   ``repeat_interleave`` without ``output_size``, boolean-mask indexing),
   which wait for the device to size their result;
-- **kernel launches** — K1/K2/K3 are ctypes calls that the dispatcher does
+- **kernel launches** — K1/K2/K3/K3w are ctypes calls that the dispatcher does
   not see, so they are read off the wrappers' launch counters
   (``stream_spmm.launches``, ``stream_panel_spmm.launches``,
-  ``gmm.launches``) before and after;
+  ``gmm.launches``, ``gmm_wgrad.launches``) before and after;
 - **FLOPs** — from the schedule's real work entries (``2·bm·bk·bn`` per
   entry; the dense escape's padded dense product), against
   ``plan.estimate.flops``, with the reference's 2× ``traffic-disagreement``
@@ -137,7 +137,8 @@ def _launch_counts() -> Dict[str, int]:
 
     return {"stream_spmm": stream.stream_spmm.launches,
             "stream_panel_spmm": stream.stream_panel_spmm.launches,
-            "moe_gmm": moe_gmm.gmm.launches}
+            "moe_gmm": moe_gmm.gmm.launches,
+            "moe_gmm_wgrad": moe_gmm.gmm_wgrad.launches}
 
 
 def _leaves(plan) -> List[Any]:

@@ -11,8 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["ModelConfig", "MoEConfig", "LayerPattern", "REGISTRY",
-           "register", "get_config"]
+__all__ = ["ModelConfig", "MoEConfig", "LayerPattern", "TrainConfig",
+           "REGISTRY", "register", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +126,28 @@ class ModelConfig:
             if all(sigs[i] == sigs[i % period] for i in range(self.n_layers)):
                 return [(tuple(sigs[:period]), self.n_layers // period)]
         return [(tuple(sigs), 1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient accumulation
+    #: activation checkpointing: True/"nothing" (recompute everything),
+    #: "dots" (save matmul outputs — less recompute, more live memory),
+    #: False (no remat)
+    remat: object = True
+    #: int8 gradient compression for the DP all-reduce (with error feedback)
+    grad_compression: bool = False
+    #: parameter storage dtype ("float32" master weights, or "bfloat16" with
+    #: fp32 optimizer moments — halves param/grad memory and traffic)
+    param_dtype: str = "float32"
+    seed: int = 0
 
 
 REGISTRY: Dict[str, "ModelConfig"] = {}

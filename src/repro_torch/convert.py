@@ -16,7 +16,8 @@ from .config import resolve_device
 from .core.formats import SparseFormat
 
 __all__ = ["encdec_params_from_jax", "ffn_params_from_jax",
-           "lm_params_from_jax", "sparse_operand_from_jax"]
+           "lm_params_from_jax", "sparse_operand_from_jax",
+           "train_state_from_jax"]
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -108,3 +109,26 @@ def encdec_params_from_jax(tree: Dict[str, Any], cfg, *, device=None
         stacked = _tree(tree[name], dev)
         out[name] = [_index(stacked, r) for r in range(n)]
     return out
+
+
+def train_state_from_jax(state, cfg, *, device=None):
+    """A JAX ``TrainState`` -> the port's, on ``device`` (``None``: the card).
+
+    The params, the AdamW moments ``m`` and ``v`` and the error-feedback
+    residuals ``ef`` (when present) are unstacked as
+    :func:`lm_params_from_jax` / :func:`encdec_params_from_jax` unstack
+    params; ``step`` becomes a 0-d int32 tensor.
+    """
+    from .train.optimizer import AdamWState
+    from .train.trainer import TrainState
+
+    dev = resolve_device(device)
+    tree = (encdec_params_from_jax if cfg.kind == "encdec"
+            else lm_params_from_jax)
+
+    def conv(t):
+        return None if t is None else tree(t, cfg, device=dev)
+
+    opt = AdamWState(step=_tensor(state.opt.step, dev).to(torch.int32),
+                     m=conv(state.opt.m), v=conv(state.opt.v))
+    return TrainState(params=conv(state.params), opt=opt, ef=conv(state.ef))

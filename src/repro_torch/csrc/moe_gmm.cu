@@ -53,6 +53,32 @@
 // parity.  It stages K through shared memory 32 deep, prefetching the next
 // slice into registers while the current one is multiplied.
 //
+// K3w, the weight gradient of K3 (flexagon_gmm_wgrad), has no TPU kernel
+// to replace: the JAX package trains through jax.lax.ragged_dot
+// (src/repro/models/moe.py:178-181) and XLA differentiates it.  It computes
+// dw[g] = sum over the row tiles t with group_ids[t] == g of
+// x[t*bm:(t+1)*bm]^T @ dy[t*bm:(t+1)*bm], a (G, K, N) result summed in fp32.
+// - grid: one block per (64 K rows, 64 N columns) of one group's dw slab,
+//   x = K block + N block, y = group; blocks of one group are neighbours in
+//   launch order, so the rows they share are read from L2.
+// - each block finds its group's tiles itself, on the device: it reads the
+//   group ids THREADS at a time, and a warp ballot and popcounts list the
+//   matching tiles in order; the host never learns the group sizes.  Idle
+//   tiles (id -1, or not below G) match no group and are skipped.
+// - it walks those tiles in order, 16 rows at a time, summing in registers:
+//   no atomics and no second pass, so the same inputs give the same bits.
+//   A group with no tiles writes zeros.
+// - bf16 (wgrad_mma_kernel): mma.sync m16n8k16 with the row axis as the
+//   product's depth.  x's slice is stored (rows, K) and read as A = x^T with
+//   ldmatrix .trans; dy's slice (rows, N) as B with .trans, as K3 reads w.
+//   Slices stream through a ring of cp.async stages.  fp32
+//   (wgrad_fma_kernel): fused multiply-adds on the CUDA cores.
+// - what bounds it: at granite's training shapes (32768 routed rows,
+//   (K, N) = (1024, 512)) one call is 2 * 32768 * 1024 * 512 = 34 GFLOP on
+//   64 MiB of x and 32 MiB of dy, about 360 operations a byte: the tensor
+//   cores set the bound.  This first version is simple (4 warps, 16-row
+//   steps, a sync per step), not fast.
+//
 // Plain C interface, bound with ctypes: every pointer and the stream are
 // void*; the entry returns the first CUDA error of its launches.
 
@@ -393,6 +419,236 @@ __global__ void __launch_bounds__(THREADS) gmm_fma_kernel(
     }
 }
 
+// -- K3w: the weight gradient ------------------------------------------------
+
+constexpr int WG_BK = 64;            // dw rows (K) per block
+constexpr int WG_BN = 64;            // dw columns (N) per block
+constexpr int WG_R = 16;             // rows of x and dy per step
+constexpr int WG_MMA_THREADS = 128;  // 4 warps, 2 x 2 over the 64 x 64 tile
+constexpr int WG_FMA_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int WG_STAGES = 4;
+constexpr int WG_LDX = WG_BK + 8;    // x slice row stride, elements (+16 B)
+constexpr int WG_LDD = WG_BN + 8;    // dy slice row stride, elements (+16 B)
+
+// The tiles of group g among tiles [base, base + blockDim.x), in order,
+// into list; returns their count.  One tile per thread: a warp ballot, and
+// popcounts of the warps before, give each match its place.
+__device__ __forceinline__ int match_tiles(const int* __restrict__ group_ids,
+                                           int tiles, int base, int g,
+                                           int* list, unsigned* masks) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int t = base + tid;
+    const bool hit = t < tiles && group_ids[t] == g;
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) masks[warp] = m;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+        const int c = __popc(masks[w]);
+        if (w < warp) before += c;
+        total += c;
+    }
+    if (hit) list[before + __popc(m & ((1u << lane) - 1u))] = t;
+    __syncthreads();
+    return total;
+}
+
+// Grid: x = K block + N block * (K blocks), y = group.
+template <typename O>
+__global__ void __launch_bounds__(WG_MMA_THREADS) wgrad_mma_kernel(
+        const __nv_bfloat16* __restrict__ x,
+        const __nv_bfloat16* __restrict__ dy,
+        const int* __restrict__ group_ids, int M, int K, int N, int bm,
+        int vec, O* __restrict__ dw) {
+    __shared__ __align__(16) __nv_bfloat16 xs[WG_STAGES][WG_R * WG_LDX];
+    __shared__ __align__(16) __nv_bfloat16 ds[WG_STAGES][WG_R * WG_LDD];
+    __shared__ int list[WG_MMA_THREADS];
+    __shared__ unsigned masks[WG_MMA_THREADS / 32];
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp / 2, wn = warp % 2;       // 32 K rows x 32 N cols
+    const int kblocks = (K + WG_BK - 1) / WG_BK;
+    const int g = blockIdx.y;
+    const int k0 = (blockIdx.x % kblocks) * WG_BK;
+    const int n0 = (blockIdx.x / kblocks) * WG_BN;
+    const int tk = min(WG_BK, K - k0), tn = min(WG_BN, N - n0);
+    const int tiles = M / bm;
+    const int subs = (bm + WG_R - 1) / WG_R;      // steps per tile
+
+    // step `item` of the listed tiles -> ring slot s; zeros past the tile's
+    // rows and the block's columns
+    auto load = [&](int s, int item) {
+        const int r0 = (item % subs) * WG_R;
+        const int rows = min(WG_R, bm - r0);
+        const size_t row0 = (size_t)list[item / subs] * bm + r0;
+        const int r = tid / 8, c = (tid % 8) * 8;  // one 16-byte piece each
+        const bool row_ok = r < rows;
+        __nv_bfloat16* xd = xs[s] + r * WG_LDX + c;
+        __nv_bfloat16* dd = ds[s] + r * WG_LDD + c;
+        if (vec) {
+            const bool okx = row_ok && c < tk, okd = row_ok && c < tn;
+            cp_async16(xd, okx ? x + (row0 + r) * K + k0 + c : x, okx);
+            cp_async16(dd, okd ? dy + (row0 + r) * N + n0 + c : dy, okd);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                xd[e] = (row_ok && c + e < tk)
+                    ? x[(row0 + r) * K + k0 + c + e] : __float2bfloat16(0.0f);
+                dd[e] = (row_ok && c + e < tn)
+                    ? dy[(row0 + r) * N + n0 + c + e] : __float2bfloat16(0.0f);
+            }
+        }
+    };
+
+    float acc[2][4][4] = {};
+    for (int base = 0; base < tiles; base += WG_MMA_THREADS) {
+        const int items = match_tiles(group_ids, tiles, base, g, list,
+                                      masks) * subs;
+#pragma unroll
+        for (int s = 0; s < WG_STAGES - 1; ++s) {
+            if (s < items) load(s, s);
+            cp_async_commit();
+        }
+        for (int it = 0; it < items; ++it) {
+            cp_async_wait<WG_STAGES - 2>();       // step it has landed
+            __syncthreads();                      // ... and slot it-1 is free
+            const int next = it + WG_STAGES - 1;
+            if (next < items) load(next % WG_STAGES, next);
+            cp_async_commit();
+
+            const __nv_bfloat16* xd = xs[it % WG_STAGES];
+            const __nv_bfloat16* dd = ds[it % WG_STAGES];
+            // A = x^T (K x rows): the stored (rows, K) slice, transposed
+            unsigned a[2][4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+                const int r = (lane & 7) + ((lane >> 4) & 1) * 8;
+                const int c = (wm * 2 + mi) * 16 + ((lane >> 3) & 1) * 8;
+                ldsm_x4_trans(a[mi], xd + r * WG_LDX + c);
+            }
+#pragma unroll
+            for (int nj = 0; nj < 2; ++nj) {
+                unsigned b[4];
+                const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+                const int c = (wn * 4 + 2 * nj) * 8 + (lane >> 4) * 8;
+                ldsm_x4_trans(b, dd + r * WG_LDD + c);
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi) {
+                    mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+                    mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+                }
+            }
+        }
+        cp_async_wait<0>();
+        __syncthreads();                          // the list is read
+    }
+
+    O* __restrict__ out = dw + (size_t)g * K * N;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+            const int r = (wm * 2 + mi) * 16 + (lane >> 2);
+            const int c = (wn * 4 + ni) * 8 + (lane & 3) * 2;
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+                const int rr = r + (h >> 1) * 8, cc = c + (h & 1);
+                if (rr < tk && cc < tn)
+                    put(out + (size_t)(k0 + rr) * N + n0 + cc,
+                        acc[mi][ni][h]);
+            }
+        }
+    }
+}
+
+// fp32 inputs: the same walk, products on the CUDA cores.  Each thread owns
+// dw rows ty + 16 i and columns tx + 16 j of the block's 64 x 64 tile.
+template <typename O>
+__global__ void __launch_bounds__(WG_FMA_THREADS) wgrad_fma_kernel(
+        const float* __restrict__ x, const float* __restrict__ dy,
+        const int* __restrict__ group_ids, int M, int K, int N, int bm,
+        O* __restrict__ dw) {
+    __shared__ float xs[WG_R][WG_BK];
+    __shared__ float ds[WG_R][WG_BN];
+    __shared__ int list[WG_FMA_THREADS];
+    __shared__ unsigned masks[WG_FMA_THREADS / 32];
+
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    const int kblocks = (K + WG_BK - 1) / WG_BK;
+    const int g = blockIdx.y;
+    const int k0 = (blockIdx.x % kblocks) * WG_BK;
+    const int n0 = (blockIdx.x / kblocks) * WG_BN;
+    const int tk = min(WG_BK, K - k0), tn = min(WG_BN, N - n0);
+    const int tiles = M / bm;
+    const int subs = (bm + WG_R - 1) / WG_R;
+
+    float acc[4][4] = {};
+    for (int base = 0; base < tiles; base += WG_FMA_THREADS) {
+        const int items = match_tiles(group_ids, tiles, base, g, list,
+                                      masks) * subs;
+        for (int it = 0; it < items; ++it) {
+            const int r0 = (it % subs) * WG_R;
+            const int rows = min(WG_R, bm - r0);
+            const size_t row0 = (size_t)list[it / subs] * bm + r0;
+#pragma unroll
+            for (int i = 0; i < WG_R * WG_BK / WG_FMA_THREADS; ++i) {
+                const int q = tid + i * WG_FMA_THREADS;
+                const int r = q / WG_BK, c = q % WG_BK;
+                xs[r][c] = (r < rows && c < tk)
+                    ? x[(row0 + r) * K + k0 + c] : 0.0f;
+                ds[r][c] = (r < rows && c < tn)
+                    ? dy[(row0 + r) * N + n0 + c] : 0.0f;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int r = 0; r < WG_R; ++r) {
+                float av[4], bv[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) av[i] = xs[r][ty + 16 * i];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) bv[j] = ds[r][tx + 16 * j];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            }
+            __syncthreads();
+        }
+    }
+
+    O* __restrict__ out = dw + (size_t)g * K * N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        if (r >= tk) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            if (c < tn) put(out + (size_t)(k0 + r) * N + n0 + c, acc[i][j]);
+        }
+    }
+}
+
+template <typename O>
+int launch_wgrad(const void* x, const void* dy, const void* group_ids, int M,
+                 int K, int N, int G, int bm, int in_dtype, void* dw,
+                 cudaStream_t stream) {
+    const dim3 grid(((K + WG_BK - 1) / WG_BK) * ((N + WG_BN - 1) / WG_BN), G);
+    if (in_dtype == 1) {
+        const int vec = K % 8 == 0 && N % 8 == 0 && (uintptr_t)x % 16 == 0
+            && (uintptr_t)dy % 16 == 0;
+        wgrad_mma_kernel<O><<<grid, WG_MMA_THREADS, 0, stream>>>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy,
+            (const int*)group_ids, M, K, N, bm, vec, (O*)dw);
+    } else {
+        wgrad_fma_kernel<O><<<grid, WG_FMA_THREADS, 0, stream>>>(
+            (const float*)x, (const float*)dy, (const int*)group_ids, M, K,
+            N, bm, (O*)dw);
+    }
+    return (int)cudaGetLastError();
+}
+
 // -- launches ----------------------------------------------------------------
 
 template <typename O, int MF, int STAGES>
@@ -484,6 +740,25 @@ extern "C" int flexagon_gmm(const void* x, const void* w,
     if (in_dtype == 1 && out_dtype == 1)
         return launch_bf16<__nv_bfloat16>(x, w, group_ids, M, K, N, G, bm,
                                           rows, splits, k_len, part, out, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// K3w: dw (G, K, N) in out_dtype from x (M, K) and dy (M, N) in in_dtype
+// (0 = float32, 1 = bfloat16), M % bm == 0, G <= 65535; the wrapper checks
+// every shape before the launch.
+extern "C" int flexagon_gmm_wgrad(const void* x, const void* dy,
+                                  const void* group_ids, int M, int K, int N,
+                                  int G, int bm, int in_dtype, int out_dtype,
+                                  void* dw, void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (bm < 1 || G < 1 || K < 1 || N < 1 || (in_dtype != 0 && in_dtype != 1))
+        return (int)cudaErrorInvalidValue;
+    if (out_dtype == 0)
+        return launch_wgrad<float>(x, dy, group_ids, M, K, N, G, bm,
+                                   in_dtype, dw, s);
+    if (out_dtype == 1)
+        return launch_wgrad<__nv_bfloat16>(x, dy, group_ids, M, K, N, G, bm,
+                                           in_dtype, dw, s);
     return (int)cudaErrorInvalidValue;
 }
 

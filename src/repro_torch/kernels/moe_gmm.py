@@ -5,10 +5,17 @@ expert weights are dense per expert.  After the sort by expert (the
 Gustavson leader fiber), expert compute is a block-diagonal product: each
 row tile multiplies only its group's weight slab.
 
-- :func:`gmm` — ``out[t*bm:(t+1)*bm] = x[t*bm:(t+1)*bm] @ w[group_ids[t]]``.
-  A CPU tensor runs :func:`gmm_plain`; a CUDA tensor launches the kernel of
+- :func:`gmm` — ``out[t*bm:(t+1)*bm] = x[t*bm:(t+1)*bm] @ w[group_ids[t]]``,
+  differentiable through :class:`GroupedMatmul`.  A CPU tensor runs
+  :func:`gmm_plain`; a CUDA tensor launches the kernel of
   ``csrc/moe_gmm.cu`` (built by ``build.py`` at first use) or raises.
-  ``gmm.launches`` counts kernel launches and nothing else.
+  ``gmm.launches`` counts kernel launches and nothing else: the forward's
+  and the backward's ``dx`` (K3 on the transposed weights).
+- :func:`gmm_wgrad` (K3w) — the weight gradient
+  ``dw[g] = sum over g's row tiles t of x_t^T @ dy_t``, summed in fp32:
+  :func:`gmm_wgrad_plain` on the CPU, the kernel of the same source on the
+  card.  ``gmm_wgrad.launches`` counts its launches.  The TPU package has no
+  kernel for it: XLA differentiates ``jax.lax.ragged_dot``.
 - :func:`launch_plan` — the host's choice of the kernel's block rows and
   K split for one call's shapes.
 - :func:`pad_groups` — the host padding of ``repro.kernels.moe_gmm``,
@@ -29,8 +36,9 @@ import torch
 
 from . import build
 
-__all__ = ["IDLE", "GmmLaunch", "gmm", "gmm_plain", "launch_plan",
-           "pad_groups", "pad_groups_device", "tile_bound"]
+__all__ = ["IDLE", "GmmLaunch", "GroupedMatmul", "gmm", "gmm_plain",
+           "gmm_wgrad", "gmm_wgrad_plain", "launch_plan", "pad_groups",
+           "pad_groups_device", "tile_bound"]
 
 #: group id of an idle row tile (past the real tiles of the device padding)
 IDLE = -1
@@ -67,20 +75,28 @@ def _check_shapes(x, w, group_ids, bm, bk, bn):
     return m, k, n, g
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' sum type: fp32, or fp64 for fp64 inputs (the
+    gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor, *,
               bm: int = 128, bk: int = 128, bn: int = 128,
               out_dtype=None) -> torch.Tensor:
     """K3 in plain PyTorch: one ``bmm`` of each row tile against its group's
-    slab, summed in fp32, cast to ``out_dtype`` (default ``x``'s).
+    slab, summed in fp32 (fp64 for fp64 inputs), cast to ``out_dtype``
+    (default ``x``'s).
 
     Idle tiles (a group id outside ``[0, G)``) give zero rows.
     """
     m, k, n, g = _check_shapes(x, w, group_ids, bm, bk, bn)
     out_dtype = out_dtype or x.dtype
+    acc = _acc_dtype(x)
     gid = group_ids.long()
     idle = (gid < 0) | (gid >= g)
-    tiles = x.float().reshape(m // bm, bm, k)
-    out = torch.bmm(tiles, w.float()[torch.where(idle, 0, gid)])
+    tiles = x.to(acc).reshape(m // bm, bm, k)
+    out = torch.bmm(tiles, w.to(acc)[torch.where(idle, 0, gid)])
     out = torch.where(idle[:, None, None], torch.zeros_like(out), out)
     return out.reshape(m, n).to(out_dtype)
 
@@ -133,58 +149,50 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flexagon_gmm.argtypes = [p, p, p] + [i] * 10 + [p, p, p]
         lib.flexagon_gmm.restype = i
+        lib.flexagon_gmm_wgrad.argtypes = [p, p, p] + [i] * 7 + [p, p]
+        lib.flexagon_gmm_wgrad.restype = i
         lib.flexagon_gmm_error_string.argtypes = [i]
         lib.flexagon_gmm_error_string.restype = ctypes.c_char_p
         lib._bound = True
     return lib
 
 
-def _check_launch(x, w, group_ids, out_dtype):
-    """Everything the kernel assumes beyond the shapes, checked on the host."""
+def _check_launch(name, x, w, group_ids, out_dtype):
+    """Everything a kernel of this file assumes beyond the shapes, checked
+    on the host; ``w`` is K3's weights or K3w's ``dy``."""
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"gmm: the CUDA kernel takes CUDA tensors, got {dev}")
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{dev}")
     if w.device != dev or group_ids.device != dev:
-        raise ValueError(f"gmm: x on {dev}, w on {w.device}, group_ids on "
+        raise ValueError(f"{name}: operands on {dev}, {w.device} and "
                          f"{group_ids.device}; want one device")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise ValueError(f"gmm: x and w must both be float32 or bfloat16, "
-                         f"got {x.dtype} and {w.dtype}")
+        raise ValueError(f"{name}: both operands must be float32 or "
+                         f"bfloat16, got {x.dtype} and {w.dtype}")
     if out_dtype not in _DTYPES:
-        raise ValueError(f"gmm: out_dtype must be float32 or bfloat16, got "
-                         f"{out_dtype}")
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, "
+                         f"got {out_dtype}")
     if group_ids.dtype != torch.int32:
-        raise ValueError(f"gmm: group_ids must be int32, got "
+        raise ValueError(f"{name}: group_ids must be int32, got "
                          f"{group_ids.dtype}")
     for label, t in (("x", x), ("w", w), ("group_ids", group_ids)):
         if not t.is_contiguous():
-            raise ValueError(f"gmm: {label} must be contiguous")
+            raise ValueError(f"{name}: {label} must be contiguous")
     if max(x.numel(), w.numel()) >= 2 ** 31:
-        raise ValueError("gmm: the kernel's int extents need fewer than "
+        raise ValueError(f"{name}: the kernel's int extents need fewer than "
                          "2**31 elements per operand")
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor, *,
-        bm: int = 128, bk: int = 128, bn: int = 128,
-        out_dtype=None) -> torch.Tensor:
-    """Grouped matmul: ``out[t*bm:(t+1)*bm] = x[t*bm:(t+1)*bm] @
-    w[group_ids[t]]``, summed in fp32, returned in ``out_dtype`` (default
-    ``x``'s).
-
-    Requires ``M % bm == K % bk == N % bn == 0`` (callers pad; see
-    :func:`pad_groups` / :func:`pad_groups_device`).  A group id outside
-    ``[0, G)`` marks an idle tile, whose rows come back zero (the device
-    padding marks them :data:`IDLE`); the kernel reads no weights for it.
-    ``bk`` and ``bn`` are the reference's tiling and only checked here;
-    ``bm`` is the group granularity.
-    """
+def _k3(x, w, group_ids, bm, bk, bn, out_dtype) -> torch.Tensor:
+    """One K3 call with no autograd: the plain version for a CPU tensor,
+    else one launch of the kernel (counted in ``gmm.launches``)."""
     if x.device.type == "cpu":
         return gmm_plain(x, w, group_ids, bm=bm, bk=bk, bn=bn,
                          out_dtype=out_dtype)
     lib = _lib()
     m, k, n, g = _check_shapes(x, w, group_ids, bm, bk, bn)
-    out_dtype = out_dtype or x.dtype
-    _check_launch(x, w, group_ids, out_dtype)
+    _check_launch("gmm", x, w, group_ids, out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -210,7 +218,146 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor, *,
     return out
 
 
+class GroupedMatmul(torch.autograd.Function):
+    """K3 with its gradient: the forward is :func:`_k3`; the backward gives
+
+    - ``dx = K3(dy, w^T)`` on the same group ids and ``bm`` (idle tiles
+      give zero rows), in ``x``'s dtype.  On the card ``w^T`` is a copy of
+      each slab, transposed (``w.transpose(1, 2).contiguous()``);
+    - ``dw = K3w(x, dy)`` (:func:`gmm_wgrad`'s :func:`_k3w`), summed in
+      fp32, zero for a
+      group with no rows, in ``w``'s dtype;
+    - no gradient for ``group_ids`` or the tiling.
+
+    ``dy`` is taken in the operands' dtype for both products.  A CUDA
+    tensor never reaches a plain version: each product launches its kernel
+    or raises.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, group_ids, bm, bk, bn, out_dtype):
+        ctx.save_for_backward(x, w, group_ids)
+        ctx.tiling = (bm, bk, bn)
+        return _k3(x, w, group_ids, bm, bk, bn, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_ids = ctx.saved_tensors
+        bm, bk, bn = ctx.tiling
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _k3(dy.to(w.dtype).contiguous(),
+                     w.transpose(1, 2).contiguous(), group_ids, bm, bn, bk,
+                     x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _k3w(x, dy.to(x.dtype).contiguous(), group_ids,
+                      w.shape[0], bm, w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor, *,
+        bm: int = 128, bk: int = 128, bn: int = 128,
+        out_dtype=None) -> torch.Tensor:
+    """Grouped matmul: ``out[t*bm:(t+1)*bm] = x[t*bm:(t+1)*bm] @
+    w[group_ids[t]]``, summed in fp32, returned in ``out_dtype`` (default
+    ``x``'s).
+
+    Requires ``M % bm == K % bk == N % bn == 0`` (callers pad; see
+    :func:`pad_groups` / :func:`pad_groups_device`).  A group id outside
+    ``[0, G)`` marks an idle tile, whose rows come back zero (the device
+    padding marks them :data:`IDLE`); the kernel reads no weights for it.
+    ``bk`` and ``bn`` are the reference's tiling and only checked here;
+    ``bm`` is the group granularity.  Differentiable in ``x`` and ``w``
+    (:class:`GroupedMatmul`), on both devices.
+    """
+    _check_shapes(x, w, group_ids, bm, bk, bn)
+    return GroupedMatmul.apply(x, w, group_ids, bm, bk, bn,
+                               out_dtype or x.dtype)
+
+
 gmm.launches = 0
+
+
+# -- K3w: the weight gradient --------------------------------------------------
+
+
+def _check_wgrad_shapes(x, dy, group_ids, groups, bm):
+    if x.dim() != 2 or dy.dim() != 2 or group_ids.dim() != 1:
+        raise ValueError(f"gmm_wgrad: want x (M, K), dy (M, N), group_ids "
+                         f"(M/bm,), got {tuple(x.shape)}, {tuple(dy.shape)}, "
+                         f"{tuple(group_ids.shape)}")
+    (m, k), n = x.shape, dy.shape[1]
+    if dy.shape[0] != m:
+        raise ValueError(f"gmm_wgrad: x has {m} rows, dy {dy.shape[0]}")
+    if bm <= 0 or m % bm or group_ids.shape[0] != m // bm:
+        raise ValueError(f"gmm_wgrad: {group_ids.shape[0]} group ids for "
+                         f"M = {m} at bm = {bm}")
+    if not 0 < groups <= _MAX_GRID_YZ:
+        raise ValueError(f"gmm_wgrad: {groups} groups, want 1 to "
+                         f"{_MAX_GRID_YZ}")
+    return m, k, n
+
+
+def gmm_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
+                    group_ids: torch.Tensor, groups: int, *, bm: int = 128,
+                    out_dtype=None) -> torch.Tensor:
+    """K3w in plain PyTorch: for each group, its rows of ``x``, transposed,
+    times its rows of ``dy``, in fp32 (fp64 for fp64 inputs); (G, K, N) in
+    ``out_dtype`` (default ``x``'s).  Idle tiles count for no group."""
+    m, k, n = _check_wgrad_shapes(x, dy, group_ids, groups, bm)
+    acc = _acc_dtype(x)
+    row_group = group_ids.long().repeat_interleave(bm)
+    xf, df = x.to(acc), dy.to(acc)
+    out = torch.zeros((groups, k, n), dtype=acc, device=x.device)
+    for g in range(groups):
+        rows = row_group == g
+        out[g] = xf[rows].T @ df[rows]
+    return out.to(out_dtype or x.dtype)
+
+
+def _k3w(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
+    """One K3w call: the plain version for a CPU tensor, else one launch of
+    the kernel (counted in ``gmm_wgrad.launches``)."""
+    if x.device.type == "cpu":
+        return gmm_wgrad_plain(x, dy, group_ids, groups, bm=bm,
+                               out_dtype=out_dtype)
+    lib = _lib()
+    m, k, n = _check_wgrad_shapes(x, dy, group_ids, groups, bm)
+    _check_launch("gmm_wgrad", x, dy, group_ids, out_dtype)
+    out = torch.empty((groups, k, n), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if out.numel() >= 2 ** 31:
+        raise ValueError("gmm_wgrad: the kernel's int extents need fewer "
+                         "than 2**31 elements in dw")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.flexagon_gmm_wgrad(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(dy.data_ptr()),
+        ctypes.c_void_p(group_ids.data_ptr()), m, k, n, groups, bm,
+        _DTYPES[x.dtype], _DTYPES[out_dtype],
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    if err:
+        msg = lib.flexagon_gmm_error_string(err).decode()
+        raise RuntimeError(f"gmm_wgrad: kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    gmm_wgrad.launches += 1
+    return out
+
+
+def gmm_wgrad(x: torch.Tensor, dy: torch.Tensor, group_ids: torch.Tensor,
+              groups: int, *, bm: int = 128, out_dtype=None) -> torch.Tensor:
+    """The weight gradient of :func:`gmm`: ``dw[g] = sum over the row tiles
+    t with group_ids[t] == g of x[t*bm:(t+1)*bm]^T @ dy[t*bm:(t+1)*bm]``,
+    (G, K, N), summed in fp32, returned in ``out_dtype`` (default ``x``'s).
+
+    A CPU tensor runs :func:`gmm_wgrad_plain`; a CUDA tensor launches K3w
+    (one block per group x 64 K rows x 64 N columns, walking the group's
+    tiles in order: no atomics, the same bits on every launch) or raises.
+    """
+    return _k3w(x, dy, group_ids, groups, bm, out_dtype or x.dtype)
+
+
+gmm_wgrad.launches = 0
 
 
 # -- padding -----------------------------------------------------------------

@@ -9,7 +9,9 @@ one parameter dict (and one cache dict) per layer, walked by a loop.
 onto it.
 
 A block is (pre-norm mixer → residual → pre-norm ffn → residual); the rwkv
-block replaces attention/FFN with time-mix/channel-mix.  Prefill and
+block replaces attention/FFN with time-mix/channel-mix.  With gradients
+on, :func:`stack_apply` checkpoints each period of the stack, as JAX's
+``jax.checkpoint`` wraps its scanned body (:func:`checkpointed`).  Prefill and
 decode write each layer's new state into its cache tensors in place.  The
 recurrent states (mamba's ``conv``/``ssm``, rwkv's ``state``/``shift_*``)
 are fp32 whatever the cache's ``dtype``, as JAX's ``init_layer_cache``
@@ -17,9 +19,12 @@ makes them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -29,7 +34,7 @@ from . import rwkv6 as rwkv_mod
 from .layers import dense, rmsnorm, rmsnorm_init
 
 __all__ = ["stack_init", "stack_apply", "stack_cache", "stack_prefill",
-           "stack_decode", "init_layer_cache"]
+           "stack_decode", "init_layer_cache", "checkpointed"]
 
 Signature = Tuple[str, str]     # (mixer, ffn)
 
@@ -203,9 +208,48 @@ def stack_init(gen: torch.Generator, cfg, dtype=torch.float32):
     return [_block_init(gen, cfg, sig, dtype) for sig in _signatures(cfg)]
 
 
-def stack_apply(params, cfg, x, positions):
-    for p, sig in zip(params, _signatures(cfg)):
-        x = _block_apply(p, cfg, sig, x, positions)
+#: the products ``remat="dots"`` keeps for the backward (JAX's
+#: ``dots_with_no_batch_dims_saveable``, here with the batched family too);
+#: everything else, K3's outputs included, is recomputed
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
+
+
+def checkpointed(fn: Callable, remat) -> Callable:
+    """``fn`` under activation checkpointing by JAX's ``remat`` knob:
+    ``True``/``"nothing"`` saves only ``fn``'s inputs and recomputes the
+    rest in the backward, ``"dots"`` also keeps the matmul outputs
+    (selective checkpointing), ``False``/``None`` is ``fn`` itself.  With
+    gradients off there is nothing to save, and ``fn`` runs as it is."""
+    if remat is False or remat is None or not torch.is_grad_enabled():
+        return fn
+    kw: Dict[str, Any] = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+    elif remat not in (True, "nothing"):
+        raise ValueError(f"remat: want False, True, 'nothing' or 'dots', "
+                         f"got {remat!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
+def stack_apply(params, cfg, x, positions, remat=True):
+    """The stack over ``x``; each period of each segment (one layer, or
+    jamba's 8) is one body checkpointed under ``remat``
+    (:func:`checkpointed`)."""
+    i = 0
+    for period, count in cfg.segments():
+        for _ in range(count):
+            layers = params[i:i + len(period)]
+
+            def body(xc, layers=layers, period=period):
+                for p, sig in zip(layers, period):
+                    xc = _block_apply(p, cfg, sig, xc, positions)
+                return xc
+
+            x = checkpointed(body, remat)(x)
+            i += len(period)
     return x
 
 

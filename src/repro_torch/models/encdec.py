@@ -26,6 +26,7 @@ import torch
 from ..config import resolve_device
 from . import attention as attn
 from . import ffn as ffn_mod
+from .decoder import checkpointed
 from .layers import (dense, dense_init, embed_init, embedding_lookup,
                      rmsnorm, rmsnorm_init)
 
@@ -88,17 +89,23 @@ class EncDec:
         }
 
     # -- encoder ------------------------------------------------------------
-    def encode(self, params, frames):
-        """frames: (B, S_enc, d_model) -> the encoder memory."""
+    def encode(self, params, frames, remat=True):
+        """frames: (B, S_enc, d_model) -> the encoder memory.  With
+        gradients on and ``remat`` truthy each layer is checkpointed, as
+        JAX's scanned body is (any truthy ``remat`` saves nothing there)."""
         cfg = self.cfg
         x = dense(params["frame_proj"], self._tensor(frames))
         positions = torch.arange(x.shape[1], device=self.device)
+
+        def body(xc, layer):
+            xn = rmsnorm(layer["norm1"], xc, cfg.norm_eps)
+            xc = xc + attn.attn_apply(layer["attn"], cfg, xn, positions,
+                                      causal=False)
+            xn = rmsnorm(layer["norm2"], xc, cfg.norm_eps)
+            return xc + ffn_mod.ffn_apply(layer["ffn"], cfg, xn)
+
         for layer in params["encoder"]:
-            xn = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-            x = x + attn.attn_apply(layer["attn"], cfg, xn, positions,
-                                    causal=False)
-            xn = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-            x = x + ffn_mod.ffn_apply(layer["ffn"], cfg, xn)
+            x = checkpointed(body, bool(remat))(x, layer)
         return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
     def _cross_kv(self, layer, memory):
@@ -109,26 +116,32 @@ class EncDec:
         v = dense(layer["cross_attn"]["wv"], memory).reshape(b, s, hkv, dh)
         return k, v
 
-    def _decoder_pass(self, params, x, positions, memory):
-        """The teacher-forced decoder over ``x`` (B, S, D)."""
+    def _decoder_pass(self, params, x, positions, memory, remat=True):
+        """The teacher-forced decoder over ``x`` (B, S, D), each layer
+        checkpointed as :meth:`encode`'s."""
         cfg = self.cfg
+
+        def body(xc, layer, memory):
+            xn = rmsnorm(layer["norm1"], xc, cfg.norm_eps)
+            xc = xc + attn.attn_apply(layer["self_attn"], cfg, xn, positions)
+            xn = rmsnorm(layer["norm_x"], xc, cfg.norm_eps)
+            xc = xc + attn.attn_apply(layer["cross_attn"], cfg, xn,
+                                      positions,
+                                      cross_kv=self._cross_kv(layer, memory))
+            xn = rmsnorm(layer["norm2"], xc, cfg.norm_eps)
+            return xc + ffn_mod.ffn_apply(layer["ffn"], cfg, xn)
+
         for layer in params["decoder"]:
-            xn = rmsnorm(layer["norm1"], x, cfg.norm_eps)
-            x = x + attn.attn_apply(layer["self_attn"], cfg, xn, positions)
-            xn = rmsnorm(layer["norm_x"], x, cfg.norm_eps)
-            x = x + attn.attn_apply(layer["cross_attn"], cfg, xn, positions,
-                                    cross_kv=self._cross_kv(layer, memory))
-            xn = rmsnorm(layer["norm2"], x, cfg.norm_eps)
-            x = x + ffn_mod.ffn_apply(layer["ffn"], cfg, xn)
+            x = checkpointed(body, bool(remat))(x, layer, memory)
         return x
 
     # -- training -----------------------------------------------------------
-    def loss(self, params, batch):
-        memory = self.encode(params, batch["frames"])
+    def loss(self, params, batch, remat=True):
+        memory = self.encode(params, batch["frames"], remat)
         tokens = self._tensor(batch["tokens"]).long()
         x = embedding_lookup(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
-        x = self._decoder_pass(params, x, positions, memory)
+        x = self._decoder_pass(params, x, positions, memory, remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         logits = dense(params["lm_head"], x).float()
         targets = self._tensor(batch["targets"]).long()

@@ -67,15 +67,18 @@ class LM:
             return torch.matmul(h, params["embed"]["table"].to(h.dtype).T)
         return dense(params["lm_head"], h)
 
-    def logits(self, params, tokens):
+    def logits(self, params, tokens, remat=True):
+        """``remat`` (JAX's knob: True/"nothing", "dots" or False) applies
+        only with gradients on; see :func:`decoder.checkpointed`."""
         tokens = self._tokens(tokens)
         x = embedding_lookup(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
-        x = decoder.stack_apply(params["blocks"], self.cfg, x, positions)
+        x = decoder.stack_apply(params["blocks"], self.cfg, x, positions,
+                                remat)
         return self._logits_from_h(params, x)
 
-    def loss(self, params, batch):
-        logits = self.logits(params, batch["tokens"])
+    def loss(self, params, batch, remat=True):
+        logits = self.logits(params, batch["tokens"], remat)
         loss = _cross_entropy(logits, self._tokens(batch["targets"]),
                               batch.get("mask"))
         return loss, {"loss": loss}

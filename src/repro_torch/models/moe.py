@@ -17,7 +17,12 @@ Where JAX's ``_moe_sort`` runs ``jax.lax.ragged_dot`` on the sorted rows,
 the port pads each expert's rows to the row tile :data:`SORT_BM` on the
 device (:func:`~repro_torch.kernels.moe_gmm.pad_groups_device`, no host
 sync), runs K3 three times (gate, up, down), and takes the real rows back
-through the scatter index.  The combine is deterministic: each token's k
+through the scatter index.  K3 is differentiable
+(:class:`~repro_torch.kernels.moe_gmm.GroupedMatmul`: K3 on the transposed
+weights for the input's gradient, K3w for the weights'), and the padding,
+scatter and combine are differentiable torch ops, so a training step's
+gradient reaches the input, the router and the three expert weights, as
+JAX's through ``ragged_dot``.  The combine is deterministic: each token's k
 weighted expert outputs are gathered through the inverse of the sort and
 added one by one in the order JAX's scatter-add applies them (ascending
 expert), in the activations' dtype.

@@ -207,3 +207,142 @@ def test_k_split_partials_sum_to_the_plain_version(bm):
     wantb = tg.gmm_plain(xb, wb, gids, bm=bm, bk=k, bn=n)
     torch.testing.assert_close(total.to(torch.bfloat16).float(),
                                wantb.float(), rtol=2 ** -7, atol=1e-4)
+
+
+# -- K3's gradient: GroupedMatmul and K3w's plain version ---------------------
+
+
+def test_grouped_matmul_gradcheck_fp64():
+    """The Function's backward (K3 on w^T for dx, K3w for dw) against
+    finite differences, in fp64 through its CPU path, with an empty group
+    and an idle tile."""
+    rng = np.random.default_rng(3)
+    sizes = torch.tensor([3, 0, 6, 1])
+    bm, k, n = 4, 5, 3
+    gids, scatter = tg.pad_groups_device(sizes, bm, int(sizes.sum()))
+    assert (gids == tg.IDLE).any()
+    xp = torch.zeros((gids.numel() * bm, k), dtype=torch.float64)
+    xp[scatter.long()] = torch.as_tensor(
+        rng.standard_normal((int(sizes.sum()), k)))
+    w = torch.as_tensor(rng.standard_normal((4, k, n)))
+    xp.requires_grad_(True)
+    w.requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda a, b: tg.gmm(a, b, gids, bm=bm, bk=k, bn=n), (xp, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_grads_match_autograd_of_plain(dtype):
+    """dx and dw from the Function against autograd through ``gmm_plain``
+    on the same inputs: fp32 to 1e-5, bf16 within one bf16 ulp."""
+    sizes = [5, 0, 12, 3]
+    bm, k, n = 4, 16, 24
+    _, w, xp, gids, _ = _padded_case(sizes, bm, k=k, n=n)
+    rng = np.random.default_rng(5)
+    dy = torch.as_tensor(rng.standard_normal((xp.shape[0], n)),
+                         dtype=torch.float32).to(dtype)
+    gids = torch.as_tensor(gids)
+    grads = []
+    for fn in (tg.gmm, tg.gmm_plain):
+        x = torch.as_tensor(xp).to(dtype).requires_grad_(True)
+        ww = torch.as_tensor(w).to(dtype).requires_grad_(True)
+        out = fn(x, ww, gids, bm=bm, bk=k, bn=n)
+        out.backward(dy)
+        grads.append((x.grad, ww.grad))
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+        else dict(rtol=2 ** -7, atol=1e-4)
+    for got, want in zip(*grads):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("bm", [4, 8])
+@pytest.mark.parametrize("sizes", [[8, 16, 0, 24], [0, 0, 8], [3, 0, 17, 1]],
+                         ids=["mixed", "leading-empty", "ragged"])
+def test_wgrad_plain_matches_jax_grad_of_ragged_dot(sizes, bm):
+    """``gmm_wgrad_plain`` on the device padding (idle tiles after the real
+    ones) against ``jax.grad`` of ``ragged_dot`` on the same sorted rows;
+    a group with no rows gets a zero gradient."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    k, n = 12, 10
+    rows = sum(sizes)
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    w = rng.standard_normal((len(sizes), k, n)).astype(np.float32)
+    dy = rng.standard_normal((rows, n)).astype(np.float32)
+    gs = jnp.asarray(sizes, jnp.int32)
+    want = np.asarray(jax.grad(lambda ww: jnp.sum(
+        jax.lax.ragged_dot(jnp.asarray(x), ww, gs) * dy))(jnp.asarray(w)))
+    gids, scatter = tg.pad_groups_device(torch.tensor(sizes), bm, rows)
+    assert (gids == tg.IDLE).any()
+    xp = torch.zeros((gids.numel() * bm, k))
+    dyp = torch.zeros((gids.numel() * bm, n))
+    xp[scatter.long()] = torch.as_tensor(x)
+    dyp[scatter.long()] = torch.as_tensor(dy)
+    got = tg.gmm_wgrad(xp, dyp, gids, len(sizes), bm=bm)
+    assert got.shape == (len(sizes), k, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    for g, s in enumerate(sizes):
+        if s == 0:
+            assert not got[g].any()
+
+
+def test_wgrad_rejects_shapes_outside_the_contract():
+    x, dy = torch.zeros(16, 8), torch.zeros(16, 4)
+    gids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tg.gmm_wgrad(x, dy[:8], gids, 2, bm=8)
+    with pytest.raises(ValueError):
+        tg.gmm_wgrad(x, dy, gids, 2, bm=4)
+    with pytest.raises(ValueError):
+        tg.gmm_wgrad(x, dy, gids, 0, bm=8)
+
+
+def test_moe_sort_grads_match_jax():
+    """The port's ``_moe_sort`` (K3 forward and backward, CPU path) against
+    JAX's (``ragged_dot``) on the same params and input, in fp32: the grads
+    of x, the router and the three expert weights, each within 1e-5 of its
+    largest magnitude."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models import moe as jmoe
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    jcfg = jax_get_config("granite-moe-1b-a400m", smoke=True)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, strategy="sort"))
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, strategy="sort"))
+    rng = np.random.default_rng(17)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    p = {"router": {"w": rng.standard_normal((d, e)) / np.sqrt(d)},
+         "w_gate": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "w_up": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "w_down": rng.standard_normal((e, f, d)) / np.sqrt(f)}
+    p = jax.tree.map(lambda a: np.asarray(a, np.float32), p)
+    x = rng.standard_normal((24, d)).astype(np.float32)
+    dy = rng.standard_normal((24, d)).astype(np.float32)
+
+    def jloss(pp, xx):
+        return jnp.sum(jmoe._moe_sort(pp, jcfg, xx) * dy)
+
+    jg_p, jg_x = jax.grad(jloss, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    tp = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), p)
+    tx = torch.tensor(x, requires_grad=True)
+    (tmoe._moe_sort(tp, cfg, tx) * torch.as_tensor(dy)).sum().backward()
+    pairs = [(tx.grad, jg_x)] + [
+        (a.grad, b) for a, b in zip(jax.tree.leaves(tp),
+                                    jax.tree.leaves(jg_p))]
+    for got, want in pairs:
+        want = np.asarray(want)
+        assert got is not None and got.shape == want.shape
+        scale = max(np.abs(want).max(), 1e-30)
+        assert np.abs(got.numpy() - want).max() / scale < 1e-5
