@@ -160,8 +160,16 @@ the MoE on K3 forward and backward and on K3w for the weight gradient:
 16. (a) K3w and K3's backward (``GroupedMatmul``) against their plain
     versions on the card: bm 16, 64 and 128, bf16 and fp32, empty groups,
     groups of several tiles, partial tiles and the device padding's idle
-    tiles, rows not 16-byte aligned, then granite's training shapes (4096
-    tokens x top-8 over 32 experts, (K, N) = (1024, 512) and (512, 1024));
+    tiles, tiles in a shuffled order, rows not 16-byte aligned, a tile
+    list longer than the TMA kernel's bitmap, then granite's training
+    shapes (4096 tokens x top-8 over 32 experts, (K, N) = (1024, 512) and
+    (512, 1024)), where the plan must pick the TMA kernel.  In bf16 K3w
+    runs both of its kernels (``wgrad_plan``: the TMA one on aligned
+    operands, the general one on copies whose bases lie one element off
+    16 bytes), each launched twice for the same bits; the TMA kernel is
+    launched 2 x WGRAD_REPEATS times more at both training shapes and at
+    a small shape whose ring wraps often, half of them beside a matmul on
+    another stream, every result bit-identical to the first.
     K3w against fp64 too, and ``gmm``'s dx and dw by autograd against
     autograd through ``gmm_plain`` and against fp64; one ``sort`` MoE
     layer of granite's
@@ -180,7 +188,9 @@ the MoE on K3 forward and backward and on K3w for the weight gradient:
     tokens/s, peak memory, one profiled step's device busy time and idle
     share by kernel family, and the first MoE layer's K3/K3w calls of one
     step replayed against their plain versions and timed beside
-    ``torch._grouped_mm`` and their bounds, with the dx transpose copies.
+    ``torch._grouped_mm`` and their bounds, with the dx transpose copies
+    and, for K3w, the plan's kernel and tile, CUDA-event time (the host's
+    tensor-map encode included) and a two-launch bit-identity gate.
     (c) one step's loss and per-leaf gradients at full width through
     ``sort`` and through ``scatter`` on the same params and a 2 x 128 token
     batch: in bf16 within GRAD_TOL_BF16 and with the model in fp32 within
@@ -224,6 +234,11 @@ prints no result lines.
 runs phases 1 and 16 alone (the build, then K3's gradient and granite
 training), writes ``chiprun_out/chip_smoke_train.json`` and prints no
 result lines.
+
+    python3 chip_smoke.py --grad
+
+runs phases 1 and 16(a) alone (the build, then K3w and K3's backward
+against their plain versions) and prints no result lines.
 
     python3 chip_smoke.py --models
 
@@ -2877,14 +2892,30 @@ def _routed_sizes(rng, tokens, experts, top_k):
     return np.bincount(picks.ravel(), minlength=experts).tolist()
 
 
-def _grad_case(device, rng, sizes, k, n, bm, dtypes):
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose base lies one element past a
+    16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _grad_case(device, rng, sizes, k, n, bm, dtypes, seen, shuffle=False,
+               function=True):
     """K3w and the Function's backward on one device padding (idle tiles
     after the real ones; dy zero on the padding rows, as ``_moe_sort``'s
     backward gives it): K3w against its plain version and fp64 for each
-    input type with output in it and in fp32; then ``gmm``'s dx and dw by
+    input type with output in it and in fp32, in bf16 through both of its
+    kernels where the shape allows the TMA one, each launched twice for
+    the same bits; then ``gmm``'s dx and dw by
     autograd against autograd through ``gmm_plain``, with the launches
-    the backward makes (one K3 for dx, one K3w).  Returns the worst
-    max|kernel - plain| of K3w and of dx."""
+    the backward makes (one K3 for dx, one K3w), unless ``function`` is
+    False.  ``shuffle`` permutes the row tiles (ids and rows together), so
+    a group's tiles are not adjacent.  Adds the K3w kernels it ran to
+    ``seen``.  Returns the worst max|kernel - plain| of K3w and of dx."""
     import torch
 
     from repro_torch.kernels import moe_gmm as mg
@@ -2905,29 +2936,58 @@ def _grad_case(device, rng, sizes, k, n, bm, dtypes):
         * max(sizes) ** -0.5
     w = torch.randn((groups, k, n), generator=gen, device=device) * k ** -0.5
     padded = gids.numel() * bm
+    if shuffle:
+        perm = torch.randperm(gids.numel(), generator=gen, device=device)
+        gids = gids[perm].contiguous()
+        # row r of tile t moves to tile perm^-1[t]
+        where = torch.empty_like(perm)
+        where[perm] = torch.arange(perm.numel(), device=device)
+        sc = where[sc // bm] * bm + sc % bm
     worst_w = worst_dx = 0.0
     for dt in dtypes:
         xp = torch.zeros((padded, k), dtype=dt, device=device)
         dyp = torch.zeros((padded, n), dtype=dt, device=device)
         xp[sc], dyp[sc] = x.to(dt), dy.to(dt)
         ref64 = _wgrad_ref64(x.to(dt), dy.to(dt), sizes)
+        # bf16 runs each kernel its plan can pick for this shape: as laid
+        # out (the TMA kernel where the shape allows it) and from bases 2
+        # bytes off 16 (the general kernel)
+        operands = [(xp, dyp)]
+        if mg.wgrad_plan(padded, k, n, groups, bm, dt).variant == "tma":
+            operands.append((_misaligned(xp), _misaligned(dyp)))
         for out_dt in sorted({dt, torch.float32}, key=str):
-            got = mg.gmm_wgrad(xp, dyp, gids, groups, bm=bm,
-                               out_dtype=out_dt)
             want = mg.gmm_wgrad_plain(xp, dyp, gids, groups, bm=bm,
                                       out_dtype=out_dt)
-            torch.cuda.synchronize()
-            label = (f"bm={bm} K={k} N={n} groups={groups} rows={rows} "
-                     f"in={dt} out={out_dt}")
-            err, rel = _tensor_check(f"moe_gmm_wgrad {label}", got, want,
-                                     ref64)
-            for g, size in enumerate(sizes):
-                if size == 0 and got[g].any():
-                    raise SystemExit(f"moe_gmm_wgrad {label}: empty group "
-                                     f"{g} has a non-zero gradient")
-            log(f"sweep moe_gmm_wgrad {label} tiles={gids.numel()} "
-                f"max|kernel-plain|={err:.3e} rel vs fp64 {rel:.1e} ok")
-            worst_w = max(worst_w, err)
+            for xo, dyo in operands:
+                plan = mg.wgrad_plan(padded, k, n, groups, bm, dt,
+                                     xo.data_ptr() % 16 == 0
+                                     and dyo.data_ptr() % 16 == 0)
+                got = mg.gmm_wgrad(xo, dyo, gids, groups, bm=bm,
+                                   out_dtype=out_dt)
+                again = mg.gmm_wgrad(xo, dyo, gids, groups, bm=bm,
+                                     out_dtype=out_dt)
+                torch.cuda.synchronize()
+                label = (f"bm={bm} K={k} N={n} groups={groups} rows={rows} "
+                         f"in={dt} out={out_dt} variant={plan.variant}")
+                err, rel = _tensor_check(f"moe_gmm_wgrad {label}", got,
+                                         want, ref64)
+                for g, size in enumerate(sizes):
+                    if size == 0 and got[g].any():
+                        raise SystemExit(f"moe_gmm_wgrad {label}: empty "
+                                         f"group {g} has a non-zero "
+                                         "gradient")
+                if not torch.equal(got, again):
+                    raise SystemExit(f"moe_gmm_wgrad {label}: two launches "
+                                     "on the same inputs differ")
+                seen.add(plan.variant)
+                log(f"sweep moe_gmm_wgrad {label} tiles={gids.numel()} "
+                f"{'shuffled ' if shuffle else ''}"
+                    f"tile={plan.tile[0]}x{plan.tile[1]} "
+                    f"max|kernel-plain|={err:.3e} "
+                    f"rel vs fp64 {rel:.1e}; two launches bit-identical ok")
+                worst_w = max(worst_w, err)
+        if not function:
+            continue
         # the Function on the card against autograd through gmm_plain
         wd = w.to(dt)
         before = _k3_launches()
@@ -2957,9 +3017,123 @@ def _grad_case(device, rng, sizes, k, n, bm, dtypes):
             else:
                 worst_w = max(worst_w, err)
         log(f"sweep GroupedMatmul bm={bm} K={k} N={n} groups={groups} "
-            f"{dt}: dx, dw vs autograd through gmm_plain and vs fp64 ok; "
+            f"{'shuffled ' if shuffle else ''}{dt}: dx, dw vs autograd through gmm_plain and vs fp64 ok; "
             f"backward launches {made}")
     return worst_w, worst_dx
+
+
+def _wgrad_far_case(device, rng, seen):
+    """K3w on a tile list longer than the TMA kernel's bitmap: 140,000
+    tiles of 16 rows, nearly all idle (random rows the kernel must skip),
+    with one group's tiles on both sides of the bitmap's edge, one only
+    past it and one empty; bf16 through the TMA kernel, fp32 out, against
+    its plain version and fp64, launched twice for the same bits; adds its
+    kernel to ``seen``.  Returns max|kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+
+    bm, k, n, tiles = 16, 64, 48, 140_000
+    # the TMA kernel's bitmap in shared memory holds the first tile ids;
+    # past them its producer ballots the ids as it goes
+    edge = mg.WGRAD_MAP_WORDS * 32
+    gids = torch.full((tiles,), mg.IDLE, dtype=torch.int32, device=device)
+    listed = {0: list(range(5, 12)) + list(range(edge - 3, edge + 4)),
+              1: list(range(tiles - 9, tiles)) + [edge + 100]}
+    for g, ts in listed.items():
+        gids[torch.tensor(ts, device=device)] = g
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(2 ** 31)))
+    x = torch.randn((tiles * bm, k), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    dy = (torch.randn((tiles * bm, n), generator=gen, device=device)
+          * 0.1).to(torch.bfloat16)
+    plan = mg.wgrad_plan(tiles * bm, k, n, 3, bm)
+    if plan.variant != "tma":
+        raise SystemExit(f"far-tiles K3w case: plan {plan}, want tma")
+    got = mg.gmm_wgrad(x, dy, gids, 3, bm=bm, out_dtype=torch.float32)
+    again = mg.gmm_wgrad(x, dy, gids, 3, bm=bm, out_dtype=torch.float32)
+    want = mg.gmm_wgrad_plain(x, dy, gids, 3, bm=bm,
+                              out_dtype=torch.float32)
+    ref64 = mg.gmm_wgrad_plain(x.double(), dy.double(), gids, 3, bm=bm)
+    torch.cuda.synchronize()
+    label = (f"far tiles: {tiles} tiles (bitmap {edge}), "
+             f"{sum(map(len, listed.values()))} listed")
+    err, rel = _tensor_check(f"moe_gmm_wgrad {label}", got, want, ref64)
+    if got[2].any():
+        raise SystemExit(f"moe_gmm_wgrad {label}: the empty group has a "
+                         "non-zero gradient")
+    if not torch.equal(got, again):
+        raise SystemExit(f"moe_gmm_wgrad {label}: two launches differ")
+    seen.add(plan.variant)
+    log(f"sweep moe_gmm_wgrad {label} variant={plan.variant} "
+        f"max|kernel-plain|={err:.3e} rel vs fp64 {rel:.1e}; two launches "
+        "bit-identical ok")
+    return err
+
+
+#: launches of the repeat gate, alone and beside a load on another stream
+WGRAD_REPEATS = 64
+
+
+def _wgrad_repeat_case(device, rng, sizes, k, n, bm):
+    """K3w's TMA kernel launched WGRAD_REPEATS times on the same inputs
+    back to back, then as often again while a matmul on a second stream
+    takes SMs and memory from it (so its blocks start and wait on other
+    schedules): every result must equal the first bit for bit.  A timing-
+    dependent fault in the ring's ordering would show as a differing
+    launch."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+
+    groups = len(sizes)
+    gids, scatter = mg.pad_groups_device(
+        torch.tensor(sizes, device=device), bm, sum(sizes))
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(2 ** 31)))
+    padded = gids.numel() * bm
+    x = torch.zeros((padded, k), dtype=torch.bfloat16, device=device)
+    dy = torch.zeros((padded, n), dtype=torch.bfloat16, device=device)
+    sc = scatter.long()
+    x[sc] = torch.randn((sum(sizes), k), generator=gen, device=device
+                        ).to(torch.bfloat16)
+    dy[sc] = (torch.randn((sum(sizes), n), generator=gen, device=device)
+              * max(sizes) ** -0.5).to(torch.bfloat16)
+    plan = mg.wgrad_plan(padded, k, n, groups, bm)
+    if plan.variant != "tma":
+        raise SystemExit(f"K3w repeat gate: plan {plan}, want tma")
+    first = mg.gmm_wgrad(x, dy, gids, groups, bm=bm)
+    # launches that differ from the first, counted on the device (no sync)
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+
+    def launches():
+        nonlocal bad
+        for _ in range(WGRAD_REPEATS):
+            bad = bad + (mg.gmm_wgrad(x, dy, gids, groups, bm=bm)
+                         != first).any()
+
+    launches()
+    side = torch.cuda.Stream(device)
+    a = torch.randn((8192, 8192), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    main = torch.cuda.current_stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(8):
+            a = a @ a * 2.0 ** -7
+    launches()
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    label = (f"bm={bm} K={k} N={n} groups={groups} rows={sum(sizes)} "
+             f"grid={plan.grid}")
+    if int(bad):
+        raise SystemExit(f"K3w repeat gate {label}: {int(bad)} of "
+                         f"{2 * WGRAD_REPEATS} launches differ from the "
+                         "first")
+    log(f"sweep moe_gmm_wgrad repeat {label}: {2 * WGRAD_REPEATS} launches "
+        f"({WGRAD_REPEATS} beside a matmul on another stream) "
+        "bit-identical to the first")
 
 
 def _moe_layer_grads(device):
@@ -3004,24 +3178,44 @@ def grad_sweep(device):
     rng = np.random.default_rng(SEED + 16)
     both = (torch.bfloat16, torch.float32)
     worst_w = worst_dx = 0.0
+    seen = set()        # K3w's kernels the sweep ran
 
-    def run(sizes, k, n, bm, dtypes=both):
+    def run(sizes, k, n, bm, dtypes=both, **kw):
         nonlocal worst_w, worst_dx
-        a, b = _grad_case(device, rng, sizes, k, n, bm, dtypes)
+        a, b = _grad_case(device, rng, sizes, k, n, bm, dtypes, seen, **kw)
         worst_w, worst_dx = max(worst_w, a), max(worst_dx, b)
 
     for bm in (16, 64, 128):
         for sizes in ([8, 16, 0, 24], [0, 0, 8], [32]):
             run([s * bm // 8 for s in sizes], 256, 200, bm)
         run([bm // 2 + 3, 0, 2 * bm + 1, 1], 256, 200, bm)   # partial tiles
+        run([s * bm // 8 for s in (40, 8, 24, 56)], 256, 200, bm,
+            shuffle=True)                                    # tiles apart
     run([5, 20, 0, 3], 260, 100, 16)          # rows not 16-byte aligned
+    # 8-row tiles: the general kernel's 16-byte loads (K3w alone)
+    run([5, 20, 0, 3], 256, 200, 8, function=False)
+    worst_w = max(worst_w, _wgrad_far_case(device, rng, seen))
     # granite's training shapes: 4096 tokens x top-8 over 32 experts
     sizes = _routed_sizes(rng, 4096, 32, 8)
     log(f"sweep training routing: {sum(sizes)} rows over {len(sizes)} "
         f"experts, {min(sizes)}-{max(sizes)} each")
+    from repro_torch.kernels import moe_gmm as mg
+
     for k, n in ((1024, 512), (512, 1024)):
+        plan = mg.wgrad_plan(mg.tile_bound(sum(sizes), len(sizes), 16) * 16,
+                             k, n, len(sizes), 16)
+        if plan.variant != "tma":
+            raise SystemExit(f"K3w's plan at granite's training shape "
+                             f"(K, N) = ({k}, {n}) is {plan}, want the TMA "
+                             "kernel")
         run(sizes, k, n, 16)
+        _wgrad_repeat_case(device, rng, sizes, k, n, 16)
         torch.cuda.empty_cache()
+    # a few blocks a call, each with many pieces: the ring wraps often
+    _wgrad_repeat_case(device, rng, [3000, 0, 1700, 40], 256, 200, 64)
+    if seen != {"tma", "mma", "fma"}:
+        raise SystemExit(f"the sweep ran K3w's {sorted(seen)}, want tma, "
+                         "mma and fma")
     _moe_layer_grads(device)
     return worst_w, worst_dx
 
@@ -3195,17 +3389,43 @@ def time_train_k3(rec, n_moe):
         rows["moe_gmm dx"]["transpose_ms"] = \
             rows["moe_gmm dx"].get("transpose_ms", 0.0) + t_ms
         x, dy, g, kw = c["x"], c["dy"], c["groups"], c["kw"]
+        plan = mg.wgrad_plan(x.shape[0], x.shape[1], dy.shape[1], g,
+                             kw["bm"], x.dtype, x.data_ptr() % 16 == 0
+                             and dy.data_ptr() % 16 == 0)
         got = mg.gmm_wgrad(x, dy, gids, g, **kw)
+        if not torch.equal(got, mg.gmm_wgrad(x, dy, gids, g, **kw)):
+            raise SystemExit("train replay: two K3w launches on the same "
+                             "inputs differ")
         err, _ = _tensor_check("train K3w", got,
                                mg.gmm_wgrad_plain(x, dy, gids, g, **kw))
         lib_ms, lib_err = _library(
             "dw", lambda: torch._grouped_mm(x[sc].t(), dy[sc], offs=offs),
             got)
+        # the library's product alone, on rows gathered beforehand
+        xs, dys = x[sc], dy[sc]
+        bare_ms, _ = _library(
+            "dw bare", lambda: torch._grouped_mm(xs.t(), dys, offs=offs),
+            got)
+        # CUDA events around whole calls: the host's tensor-map encode and
+        # launch between the kernels included
+        ev_ms = _events_ms(lambda: mg.gmm_wgrad(x, dy, gids, g, **kw))
         add("moe_gmm_wgrad",
             _device_ms(lambda: mg.gmm_wgrad(x, dy, gids, g, **kw))[0],
             _device_ms(lambda: mg.gmm_wgrad_plain(x, dy, gids, g, **kw))[0],
             lib_ms, *_bound(r, x.shape[1], dy.shape[1], active, tiles), err,
-            "" if lib_err is None else f" max|library-kernel|={lib_err:.2e}")
+            f" variant={plan.variant} tile={plan.tile[0]}x{plan.tile[1]} "
+            f"events_ms={ev_ms:.4f} bit-identical "
+            f"library_bare_ms="
+            f"{'none' if bare_ms is None else f'{bare_ms:.4f}'}"
+            + ("" if lib_err is None else
+               f" max|library-kernel|={lib_err:.2e}"))
+        t = rows["moe_gmm_wgrad"]
+        t["events_ms"] = t.get("events_ms", 0.0) + ev_ms
+        t["library_bare_ms"] = None if bare_ms is None \
+            or t.get("library_bare_ms", 0.0) is None \
+            else t.get("library_bare_ms", 0.0) + bare_ms
+        t["variants"] = sorted(set(t.get("variants", [])) | {plan.variant})
+        t["tile"] = list(plan.tile)
     per_step = {
         "moe_gmm_ms": n_moe * (2 * rows["moe_gmm fwd"]["ms"]
                                + rows["moe_gmm dx"]["ms"]),
@@ -3587,6 +3807,11 @@ def main() -> int:
             {"card": card, "models": models}, indent=1, default=str))
         log(f"models done in {time.perf_counter() - t_start:.1f} s on "
             f"{card}")
+        return 0
+    if "--grad" in sys.argv[1:]:
+        # phases 1 and 16(a) alone: K3w and K3's backward on the card
+        grad_sweep(device)
+        log(f"grad done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
     if "--train" in sys.argv[1:]:
         # phases 1 and 16 alone: K3's gradient and granite training

@@ -57,33 +57,64 @@
 // to replace: the JAX package trains through jax.lax.ragged_dot
 // (src/repro/models/moe.py:178-181) and XLA differentiates it.  It computes
 // dw[g] = sum over the row tiles t with group_ids[t] == g of
-// x[t*bm:(t+1)*bm]^T @ dy[t*bm:(t+1)*bm], a (G, K, N) result summed in fp32.
-// - grid: one block per (64 K rows, 64 N columns) of one group's dw slab,
-//   x = K block + N block, y = group; blocks of one group are neighbours in
-//   launch order, so the rows they share are read from L2.
-// - each block finds its group's tiles itself, on the device: it reads the
-//   group ids THREADS at a time, and a warp ballot and popcounts list the
-//   matching tiles in order; the host never learns the group sizes.  Idle
-//   tiles (id -1, or not below G) match no group and are skipped.
-// - it walks those tiles in order, 16 rows at a time, summing in registers:
-//   no atomics and no second pass, so the same inputs give the same bits.
-//   A group with no tiles writes zeros.
-// - bf16 (wgrad_mma_kernel): mma.sync m16n8k16 with the row axis as the
-//   product's depth.  x's slice is stored (rows, K) and read as A = x^T with
-//   ldmatrix .trans; dy's slice (rows, N) as B with .trans, as K3 reads w.
-//   Slices stream through a ring of cp.async stages.  fp32
-//   (wgrad_fma_kernel): fused multiply-adds on the CUDA cores.
-// - what bounds it: at granite's training shapes (32768 routed rows,
-//   (K, N) = (1024, 512)) one call is 2 * 32768 * 1024 * 512 = 34 GFLOP on
-//   64 MiB of x and 32 MiB of dy, about 360 operations a byte: the tensor
-//   cores set the bound.  This first version is simple (4 warps, 16-row
-//   steps, a sync per step), not fast.
-//
+// x[t*bm:(t+1)*bm]^T @ dy[t*bm:(t+1)*bm], a (G, K, N) result summed in fp32
+// and rounded once.  Idle tiles (id -1, or not below G) count for no group;
+// a group with no tiles gives zeros; the host never learns the group sizes;
+// no atomics, so the same inputs give the same bits on every launch.
+// - what bounds it: at granite's training shapes (33,280 padded rows of
+//   which 32,768 real, 32 groups, (K, N) = (1024, 512) and (512, 1024),
+//   bf16) one call moves 64 MiB of x, 32 MiB of dy and 32 MiB of dw, 0.040
+//   ms at 3.35 TB/s, and does 2 * 32768 * 1024 * 512 = 34 GFLOP, 0.035 ms
+//   at 989 TFLOP/s: the bytes set the bound, the tensor cores are close
+//   behind.  So a block must read its rows once per large dw tile, and keep
+//   the tensor cores fed while it streams them.
+// - wgrad_tma_kernel (bf16, where TMA can take the operands: K and N
+//   multiples of 8, 16-byte-aligned bases, bm a multiple of 16, rows > 0).
+//   One block owns a 128 x 256 piece of one group's dw; x = K block + N
+//   block * (K blocks), y = group, so the blocks of a group are neighbours
+//   in launch order and share its rows in L2: at (1024, 512) each row of x
+//   is read by 2 blocks and each row of dy by 8, 0.40 GB through L2 a call
+//   where 64 x 64 tiles read 1.07 GB.
+//   - the group's tiles: the whole block reads the first 131,072 tile ids
+//     at once into a bitmap in shared memory (a ballot per 32 ids); the
+//     producer warp then walks it 32 words at a time, skips empty words,
+//     takes each run of set bits whole and joins adjacent runs, so its
+//     cost is per run, not per tile (a per-tile walk left the tensor cores
+//     waiting on it).  Ids past the bitmap are balloted as it goes.
+//   - loads: the producer streams each run in pieces of 64 rows, with TMA,
+//     into a ring of 4 stages (x's 64 x 128 and dy's 64 x 256, 48 KB a
+//     stage, 128-byte swizzle), each with a full and an empty mbarrier; a
+//     stage carries its count of rows, and a count of 0 ends the walk, so
+//     the ring never drains.
+//   - products: two consumer warpgroups, 64 dw rows each, run wgmma
+//     m64n256k16 with both operands read from shared memory as stored:
+//     the row axis is the product's depth, A = x^T is M-major and B = dy
+//     is N-major, which the instruction's transpose bits take for bf16, so
+//     no transpose copy is made.  A piece of r rows is r / 16 wgmmas, so a
+//     partial piece reads no row it did not list.  fp32 sums stay in
+//     registers (128 a thread).
+//   - epilogue: the tile goes through the idle ring in the 128-byte
+//     swizzle and out by TMA stores, clipped at K and N (per-thread
+//     stores from registers took a fifth of the kernel).
+//   - no row split: at granite's training shapes the grid is 512 blocks,
+//     about 4 per SM; the sweeps' small calls run fewer blocks, correctly.
+//   x's, dy's and dw's tensor maps are encoded on the host at each call
+//   (cuTensorMapEncodeTiled, from libcuda.so.1 by dlopen) and passed as
+//   __grid_constant__ parameters.
+// - wgrad_mma_kernel (bf16, every other shape: K = 260, misaligned bases):
+//   one block per 64 x 64 piece of one group's dw, 4 warps of mma.sync
+//   m16n8k16 over 16-row steps through a ring of cp.async stages; each
+//   block lists its group's tiles 128 ids at a time with a ballot.  fp32
+//   (wgrad_fma_kernel): the same walk, fused multiply-adds on the CUDA
+//   cores.
+
 // Plain C interface, bound with ctypes: every pointer and the stream are
 // void*; the entry returns the first CUDA error of its launches.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -630,6 +661,459 @@ __global__ void __launch_bounds__(WG_FMA_THREADS) wgrad_fma_kernel(
     }
 }
 
+// -- K3w on Hopper: TMA into an mbarrier ring, wgmma on both operands -------
+
+constexpr int TW_BM = 128;            // dw rows (K) per block: 2 x 64
+constexpr int TW_BN = 256;            // dw columns (N) per block
+constexpr int TW_R = 64;              // rows of x and dy per stage
+constexpr int TW_STAGES = 4;
+constexpr int TW_CHUNK = 64;          // elements of one 128-byte row
+constexpr int TW_CHUNK_BYTES = TW_R * TW_CHUNK * 2;    // one TMA box, 8 KB
+constexpr int TW_XCH = TW_BM / TW_CHUNK;               // x boxes a stage
+constexpr int TW_DCH = TW_BN / TW_CHUNK;               // dy boxes a stage
+constexpr int TW_STAGE_BYTES = (TW_XCH + TW_DCH) * TW_CHUNK_BYTES;
+constexpr int TW_CONSUMER_WARPS = 8;  // two warpgroups
+constexpr int TW_THREADS = 32 * TW_CONSUMER_WARPS + 32;  // + the producer
+// words of the block's bitmap of its group's tiles: the first 32 x this
+// tile ids are scanned by the whole block at once, any after them by the
+// producer as it goes
+constexpr int TW_MAP_WORDS = 4096;
+// the ring, 1 KB to align it for the swizzle, the barriers and row
+// counts, the bitmap
+constexpr int TW_SMEM = TW_STAGES * TW_STAGE_BYTES + 1024 + 128
+    + TW_MAP_WORDS * 4;
+static_assert(TW_SMEM <= 232448, "over the H100's 227 KB a block");
+// an error of the TMA launch that is not CUDA's own: the tensor maps could
+// not be encoded
+constexpr int TW_ENCODE_FAILED = 100000;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    unsigned done;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
+// box (c0 = column, c1 = row) of the map's first plane -> dst, counted on
+// bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(c0), "r"(c1), "r"(0), "r"(smem_addr(bar)) : "memory");
+}
+
+// shared -> box (c0 = column, c1 = row, c2 = plane) of the map
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+           "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// A shared-memory operand of wgmma in the 128-byte swizzle TMA writes:
+// rows of 128 bytes, 8-row atoms of 1 KB.  For an MN-major operand, lbo is
+// the byte distance between 64-element blocks along M (or N), sbo between
+// 8-row groups along the depth.
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+        | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+        | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
+        | (uint64_t)1 << 62;
+}
+constexpr unsigned TW_LBO = TW_CHUNK_BYTES;  // next 64 columns: next box
+constexpr unsigned TW_SBO = 8 * 128;         // next 8 rows: next atom
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// d (64 x 256, fp32) += A (64 x 16) @ B (16 x 256), both bf16 in shared
+// memory, A M-major and B N-major (transpose bits 1, 1)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// dw[g] for a 128 x 256 block of one group.
+// Grid: x = K block + N block * (K blocks), y = group.  Warps 0-7 (two
+// warpgroups) multiply, warp 8 loads.  tmo is dw (G, K, N) in O, in boxes
+// of 128 rows x 128 bytes.
+template <typename O>
+__global__ void __launch_bounds__(TW_THREADS, 1) wgrad_tma_kernel(
+        const __grid_constant__ CUtensorMap tmx,
+        const __grid_constant__ CUtensorMap tmd,
+        const __grid_constant__ CUtensorMap tmo,
+        const int* __restrict__ group_ids, int tiles, int K, int N,
+        int bm) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring
+                                                 + TW_STAGES * TW_STAGE_BYTES);
+    uint64_t* empty = full + TW_STAGES;
+    int* stage_rows = reinterpret_cast<int*>(empty + TW_STAGES);
+    unsigned* map = reinterpret_cast<unsigned*>(ring + TW_STAGES
+                                                * TW_STAGE_BYTES + 128);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int kblocks = (K + TW_BM - 1) / TW_BM;
+    const int g = blockIdx.y;
+    const int k0 = (blockIdx.x % kblocks) * TW_BM;
+    const int n0 = (blockIdx.x / kblocks) * TW_BN;
+
+    if (tid == 0) {
+        for (int s = 0; s < TW_STAGES; ++s) {
+            mbar_init(&full[s], 1);      // the producer's arrival + bytes
+            mbar_init(&empty[s], TW_CONSUMER_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // bit b of map[w]: tile 32 w + b is the group's.  Each warp reads 8
+    // words' ids before its ballots, so the block waits on about one round
+    // trip to L2 for the first 72 x 32 ids
+    const int words = (tiles + 31) >> 5;
+    const int mapped = min(words, TW_MAP_WORDS);
+    constexpr int WARPS = TW_THREADS / 32;
+    for (int w0 = warp; w0 < mapped; w0 += 8 * WARPS) {
+        int id[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int t = (w0 + j * WARPS) * 32 + lane;
+            id[j] = w0 + j * WARPS < mapped && t < tiles
+                ? __ldg(group_ids + t) : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const unsigned m = __ballot_sync(0xffffffffu, id[j] == g);
+            if (lane == 0 && w0 + j * WARPS < mapped) map[w0 + j * WARPS] = m;
+        }
+    }
+    __syncthreads();
+
+    if (warp == TW_CONSUMER_WARPS) {
+        // the producer: the group's tiles in id order, adjacent ones joined
+        // into runs, each run in pieces of up to TW_R rows
+        int nx = 0, nd = 0;
+        for (int c = 0; c < TW_XCH; ++c) nx += k0 + c * TW_CHUNK < K;
+        for (int c = 0; c < TW_DCH; ++c) nd += n0 + c * TW_CHUNK < N;
+        const unsigned bytes = (nx + nd) * TW_CHUNK_BYTES;
+        int stage = 0;
+        unsigned phase = 0;
+        auto emit = [&](int row, int rows) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            if (lane == 0) {
+                unsigned char* st = ring + stage * TW_STAGE_BYTES;
+                stage_rows[stage] = rows;
+                mbar_expect_tx(&full[stage], bytes);
+                // boxes wholly past K or N are not loaded: only the rows or
+                // columns of dw that the epilogue drops read them
+                for (int c = 0; c < nx; ++c)
+                    tma_load(st + c * TW_CHUNK_BYTES, &tmx,
+                             k0 + c * TW_CHUNK, row, &full[stage]);
+                for (int c = 0; c < nd; ++c)
+                    tma_load(st + (TW_XCH + c) * TW_CHUNK_BYTES, &tmd,
+                             n0 + c * TW_CHUNK, row, &full[stage]);
+            }
+            __syncwarp();
+            if (++stage == TW_STAGES) {
+                stage = 0;
+                phase ^= 1;
+            }
+        };
+        int run_row = 0, run_rows = 0;
+        auto flush = [&]() {
+            while (run_rows > 0) {
+                const int r = min(TW_R, run_rows);
+                emit(run_row, r);
+                run_row += r;
+                run_rows -= r;
+            }
+        };
+        // 32 words at a time, lane l holding word w0 + l: the words in the
+        // bitmap are read at once, the ones past it (mapped is then a
+        // multiple of 32) ballot their ids; only non-empty words are walked
+        for (int w0 = 0; w0 < words; w0 += 32) {
+            unsigned word = 0;
+            if (w0 < mapped) {
+                if (w0 + lane < mapped) word = map[w0 + lane];
+            } else {
+                for (int l = 0; l < 32 && w0 + l < words; ++l) {
+                    const int t = (w0 + l) * 32 + lane;
+                    const unsigned b = __ballot_sync(
+                        0xffffffffu, t < tiles && __ldg(group_ids + t) == g);
+                    if (lane == l) word = b;
+                }
+            }
+            unsigned busy = __ballot_sync(0xffffffffu, word != 0);
+            while (busy) {
+                const int l = __ffs(busy) - 1;
+                busy &= busy - 1;
+                const int w = w0 + l;
+                unsigned m = __shfl_sync(0xffffffffu, word, l);
+                while (m) {                  // each run of set bits at once
+                    const int lo = __ffs(m) - 1;
+                    const unsigned rest = ~(m >> lo);
+                    const int len = rest ? __ffs(rest) - 1 : 32 - lo;
+                    m &= ~(unsigned)(((1ull << len) - 1) << lo);
+                    const int row = (w * 32 + lo) * bm;
+                    if (run_rows > 0 && row == run_row + run_rows) {
+                        run_rows += len * bm;
+                    } else {
+                        flush();
+                        run_row = row;
+                        run_rows = len * bm;
+                    }
+                    while (run_rows >= TW_R) {
+                        emit(run_row, TW_R);
+                        run_row += TW_R;
+                        run_rows -= TW_R;
+                    }
+                }
+            }
+        }
+        flush();
+        mbar_wait(&empty[stage], phase ^ 1);     // a count of 0 ends it
+        if (lane == 0) {
+            stage_rows[stage] = 0;
+            mbar_arrive(&full[stage]);
+        }
+        return;
+    }
+
+    // the consumers: warpgroup wg owns dw rows k0 + 64 wg ... + 63
+    const int wg = warp >> 2;
+    const bool live = k0 + wg * TW_CHUNK < K;
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+    int stage = 0, held = -1;
+    unsigned phase = 0;
+    while (true) {
+        mbar_wait(&full[stage], phase);
+        __syncwarp();       // the lanes leave the wait together for wgmma
+        const int rows = stage_rows[stage];
+        if (rows == 0) break;
+        if (live) {
+            const unsigned st = smem_addr(ring + stage * TW_STAGE_BYTES);
+            const unsigned a0 = st + wg * TW_CHUNK_BYTES;
+            const unsigned b0 = st + TW_XCH * TW_CHUNK_BYTES;
+            fence_acc(d);
+            wgmma_fence();
+            for (int j = 0; j < rows / 16; ++j)      // 16 rows: 2 KB
+                wgmma_m64n256k16(d, sw128_desc(a0 + j * 2048, TW_LBO, TW_SBO),
+                                 sw128_desc(b0 + j * 2048, TW_LBO, TW_SBO));
+            wgmma_commit();
+            fence_acc(d);
+        }
+        // the products of the stage before have read it: release that one,
+        // once every lane of the warp is past its read of stage_rows
+        wgmma_wait<1>();
+        fence_acc(d);
+        __syncwarp();
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == TW_STAGES) {
+            stage = 0;
+            phase ^= 1;
+        }
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+
+    // the epilogue: the tile goes through the ring, now idle, into boxes of
+    // 128 rows x 128 bytes in the 128-byte swizzle (row r's 16-byte chunk c
+    // at r * 128 + (c ^ r % 8) * 16, so a warp's 8 rows hit 8 chunks), then
+    // to dw by TMA.  d[4 i + 2 h + e] is the tile's row 64 wg + 16 (warp % 4)
+    // + lane / 4 + 8 h, column 8 i + 2 (lane % 4) + e.  Both warpgroups are
+    // past their last product before either writes.
+    asm volatile("bar.sync 1, %0;\n" :: "n"(32 * TW_CONSUMER_WARPS));
+    constexpr bool fp32 = sizeof(O) == 4;
+    const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = row + 8 * h, c = 8 * i + 2 * (lane & 3);
+            const float a = d[4 * i + 2 * h], b = d[4 * i + 2 * h + 1];
+            if (fp32) {         // boxes of 32 columns
+                const int cc = c & 31;
+                *reinterpret_cast<float2*>(
+                    ring + (c >> 5) * TW_R * 256 + r * 128
+                    + (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4) =
+                    make_float2(a, b);
+            } else {            // boxes of 64 columns
+                const int cc = c & 63;
+                *reinterpret_cast<__nv_bfloat162*>(
+                    ring + (c >> 6) * TW_R * 256 + r * 128
+                    + (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2) =
+                    __floats2bfloat162_rn(a, b);
+            }
+        }
+    }
+    // the writes, made by the threads, are read by TMA's proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" :: "n"(32 * TW_CONSUMER_WARPS));
+    if (tid == 0) {
+        constexpr int width = fp32 ? 32 : 64;
+        for (int b = 0; b * width < TW_BN && n0 + b * width < N; ++b)
+            tma_store(&tmo, ring + b * TW_R * 256, n0 + b * width, k0, g);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+}
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the process has loaded;
+// null where it is missing
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+        return lib ? reinterpret_cast<EncodeTiled>(
+                         dlsym(lib, "cuTensorMapEncodeTiled"))
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// a row-major tensor of planes x rows x cols of the given type, in boxes
+// of box_rows x 128 bytes with the 128-byte swizzle; zeros past its edges
+// when read, nothing written past them
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int esize,
+            const void* base, int planes, int rows, int cols, int box_rows) {
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                                (cuuint64_t)planes};
+    const cuuint64_t strides[2] = {(cuuint64_t)cols * esize,
+                                   (cuuint64_t)rows * cols * esize};
+    const cuuint32_t box[3] = {(cuuint32_t)(128 / esize),
+                               (cuuint32_t)box_rows, 1};
+    const cuuint32_t step[3] = {1, 1, 1};
+    return fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
+              step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename O>
+int launch_wgrad_tma(const void* x, const void* dy, const void* group_ids,
+                     int M, int K, int N, int G, int bm, void* dw,
+                     cudaStream_t stream) {
+    constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    constexpr bool out32 = sizeof(O) == 4;
+    CUtensorMap tmx, tmd, tmo;
+    if (!encode(&tmx, BF16, 2, x, 1, M, K, TW_R)
+            || !encode(&tmd, BF16, 2, dy, 1, M, N, TW_R)
+            || !encode(&tmo, out32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : BF16,
+                       sizeof(O), dw, G, K, N, TW_BM))
+        return TW_ENCODE_FAILED;
+    auto kernel = wgrad_tma_kernel<O>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(((K + TW_BM - 1) / TW_BM) * ((N + TW_BN - 1) / TW_BN), G);
+    kernel<<<grid, TW_THREADS, TW_SMEM, stream>>>(
+        tmx, tmd, tmo, (const int*)group_ids, M / bm, K, N, bm);
+    return (int)cudaGetLastError();
+}
+
 template <typename O>
 int launch_wgrad(const void* x, const void* dy, const void* group_ids, int M,
                  int K, int N, int G, int bm, int in_dtype, void* dw,
@@ -744,24 +1228,42 @@ extern "C" int flexagon_gmm(const void* x, const void* w,
 }
 
 // K3w: dw (G, K, N) in out_dtype from x (M, K) and dy (M, N) in in_dtype
-// (0 = float32, 1 = bfloat16), M % bm == 0, G <= 65535; the wrapper checks
-// every shape before the launch.
+// (0 = float32, 1 = bfloat16), M % bm == 0, G <= 65535.  variant comes
+// from the wrapper's plan (wgrad_plan): 0 = the general kernels
+// (wgrad_mma_kernel for bf16, wgrad_fma_kernel for fp32), 1 =
+// wgrad_tma_kernel, which takes bf16 with K % 8 == N % 8 == 0, 16-byte
+// aligned x and dy, bm % 16 == 0 and M > 0.  A variant refused for these
+// operands returns an error; the wrapper checks every shape before the
+// launch.
 extern "C" int flexagon_gmm_wgrad(const void* x, const void* dy,
                                   const void* group_ids, int M, int K, int N,
                                   int G, int bm, int in_dtype, int out_dtype,
-                                  void* dw, void* stream) {
+                                  int variant, void* dw, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    if (bm < 1 || G < 1 || K < 1 || N < 1 || (in_dtype != 0 && in_dtype != 1))
+    if (bm < 1 || G < 1 || K < 1 || N < 1 || (in_dtype != 0 && in_dtype != 1)
+            || (out_dtype != 0 && out_dtype != 1))
         return (int)cudaErrorInvalidValue;
+    if (variant == 1) {
+        if (in_dtype != 1 || K % 8 || N % 8 || bm % 16 || M < 1
+                || (uintptr_t)x % 16 || (uintptr_t)dy % 16)
+            return (int)cudaErrorInvalidValue;
+        if (out_dtype == 0)
+            return launch_wgrad_tma<float>(x, dy, group_ids, M, K, N, G, bm,
+                                           dw, s);
+        return launch_wgrad_tma<__nv_bfloat16>(x, dy, group_ids, M, K, N, G,
+                                               bm, dw, s);
+    }
+    if (variant != 0) return (int)cudaErrorInvalidValue;
     if (out_dtype == 0)
         return launch_wgrad<float>(x, dy, group_ids, M, K, N, G, bm,
                                    in_dtype, dw, s);
-    if (out_dtype == 1)
-        return launch_wgrad<__nv_bfloat16>(x, dy, group_ids, M, K, N, G, bm,
-                                           in_dtype, dw, s);
-    return (int)cudaErrorInvalidValue;
+    return launch_wgrad<__nv_bfloat16>(x, dy, group_ids, M, K, N, G, bm,
+                                       in_dtype, dw, s);
 }
 
 extern "C" const char* flexagon_gmm_error_string(int code) {
+    if (code == TW_ENCODE_FAILED)
+        return "cannot encode K3w's tensor maps (cuTensorMapEncodeTiled "
+               "from libcuda.so.1)";
     return cudaGetErrorString((cudaError_t)code);
 }

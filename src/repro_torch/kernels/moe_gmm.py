@@ -13,11 +13,11 @@ row tile multiplies only its group's weight slab.
   and the backward's ``dx`` (K3 on the transposed weights).
 - :func:`gmm_wgrad` (K3w) — the weight gradient
   ``dw[g] = sum over g's row tiles t of x_t^T @ dy_t``, summed in fp32:
-  :func:`gmm_wgrad_plain` on the CPU, the kernel of the same source on the
+  :func:`gmm_wgrad_plain` on the CPU, a kernel of the same source on the
   card.  ``gmm_wgrad.launches`` counts its launches.  The TPU package has no
   kernel for it: XLA differentiates ``jax.lax.ragged_dot``.
-- :func:`launch_plan` — the host's choice of the kernel's block rows and
-  K split for one call's shapes.
+- :func:`launch_plan` — the host's choice of K3's block rows and K split
+  for one call's shapes; :func:`wgrad_plan` — K3w's kernel and tile.
 - :func:`pad_groups` — the host padding of ``repro.kernels.moe_gmm``,
   byte-equal to it.
 - :func:`pad_groups_device` — the same padding as tensors on the device,
@@ -36,9 +36,9 @@ import torch
 
 from . import build
 
-__all__ = ["IDLE", "GmmLaunch", "GroupedMatmul", "gmm", "gmm_plain",
-           "gmm_wgrad", "gmm_wgrad_plain", "launch_plan", "pad_groups",
-           "pad_groups_device", "tile_bound"]
+__all__ = ["IDLE", "GmmLaunch", "GroupedMatmul", "WgradLaunch", "gmm",
+           "gmm_plain", "gmm_wgrad", "gmm_wgrad_plain", "launch_plan",
+           "pad_groups", "pad_groups_device", "tile_bound", "wgrad_plan"]
 
 #: group id of an idle row tile (past the real tiles of the device padding)
 IDLE = -1
@@ -149,7 +149,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flexagon_gmm.argtypes = [p, p, p] + [i] * 10 + [p, p, p]
         lib.flexagon_gmm.restype = i
-        lib.flexagon_gmm_wgrad.argtypes = [p, p, p] + [i] * 7 + [p, p]
+        lib.flexagon_gmm_wgrad.argtypes = [p, p, p] + [i] * 8 + [p, p]
         lib.flexagon_gmm_wgrad.restype = i
         lib.flexagon_gmm_error_string.argtypes = [i]
         lib.flexagon_gmm_error_string.restype = ctypes.c_char_p
@@ -315,9 +315,49 @@ def gmm_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
     return out.to(out_dtype or x.dtype)
 
 
+class WgradLaunch(NamedTuple):
+    """How one K3w call runs (``csrc/moe_gmm.cu``)."""
+
+    variant: str                 # "tma", "mma" (bf16) or "fma" (fp32)
+    tile: Tuple[int, int]        # dw rows (K) x columns (N) a block owns
+    grid: Tuple[int, int]        # (K blocks x N blocks, groups)
+
+
+#: K3w's TMA kernel's dw tile (TW_BM x TW_BN in the source)
+WGRAD_TILE = (128, 256)
+#: words of its bitmap of a group's tiles in shared memory (TW_MAP_WORDS)
+WGRAD_MAP_WORDS = 4096
+#: the general kernels' dw tile
+WGRAD_GENERAL_TILE = (64, 64)
+
+
+def wgrad_plan(m: int, k: int, n: int, groups: int, bm: int,
+               dtype=torch.bfloat16, aligned: bool = True) -> WgradLaunch:
+    """K3w's kernel and tile for one call, from its shapes and its
+    operands' 16-byte alignment alone.
+
+    bf16 takes ``wgrad_tma_kernel`` (128 x 256 dw tiles, TMA and wgmma)
+    where TMA can read the operands: K and N multiples of 8 (16-byte rows),
+    16-byte-aligned bases, ``bm`` a multiple of 16 (a stage's rows are
+    whole 16-row wgmma steps of listed tiles) and rows to read.  Every
+    other bf16 call takes ``wgrad_mma_kernel`` and fp32
+    ``wgrad_fma_kernel``, 64 x 64 tiles.  No variant splits the rows: at
+    granite's training shapes the TMA kernel runs 512 blocks.
+    """
+    if dtype == torch.bfloat16 and aligned and k % 8 == 0 and n % 8 == 0 \
+            and bm % 16 == 0 and m > 0:
+        variant, tile = "tma", WGRAD_TILE
+    else:
+        variant = "mma" if dtype == torch.bfloat16 else "fma"
+        tile = WGRAD_GENERAL_TILE
+    blocks = -(-k // tile[0]) * -(-n // tile[1])
+    return WgradLaunch(variant, tile, (blocks, groups))
+
+
 def _k3w(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
-    """One K3w call: the plain version for a CPU tensor, else one launch of
-    the kernel (counted in ``gmm_wgrad.launches``)."""
+    """One K3w call: the plain version for a CPU tensor, else the kernel
+    :func:`wgrad_plan` picks (one launch counted in
+    ``gmm_wgrad.launches``)."""
     if x.device.type == "cpu":
         return gmm_wgrad_plain(x, dy, group_ids, groups, bm=bm,
                                out_dtype=out_dtype)
@@ -330,16 +370,18 @@ def _k3w(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
     if out.numel() >= 2 ** 31:
         raise ValueError("gmm_wgrad: the kernel's int extents need fewer "
                          "than 2**31 elements in dw")
+    plan = wgrad_plan(m, k, n, groups, bm, x.dtype,
+                      x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.flexagon_gmm_wgrad(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(dy.data_ptr()),
         ctypes.c_void_p(group_ids.data_ptr()), m, k, n, groups, bm,
-        _DTYPES[x.dtype], _DTYPES[out_dtype],
+        _DTYPES[x.dtype], _DTYPES[out_dtype], int(plan.variant == "tma"),
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err:
         msg = lib.flexagon_gmm_error_string(err).decode()
-        raise RuntimeError(f"gmm_wgrad: kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
+        raise RuntimeError(f"gmm_wgrad: {plan.variant} kernel launch failed: "
+                           f"error {err} ({msg})")
     gmm_wgrad.launches += 1
     return out
 
@@ -350,9 +392,15 @@ def gmm_wgrad(x: torch.Tensor, dy: torch.Tensor, group_ids: torch.Tensor,
     t with group_ids[t] == g of x[t*bm:(t+1)*bm]^T @ dy[t*bm:(t+1)*bm]``,
     (G, K, N), summed in fp32, returned in ``out_dtype`` (default ``x``'s).
 
-    A CPU tensor runs :func:`gmm_wgrad_plain`; a CUDA tensor launches K3w
-    (one block per group x 64 K rows x 64 N columns, walking the group's
-    tiles in order: no atomics, the same bits on every launch) or raises.
+    A CPU tensor runs :func:`gmm_wgrad_plain`; a CUDA tensor launches the
+    kernel :func:`wgrad_plan` picks, or raises.  In bf16 that is mostly
+    ``wgrad_tma_kernel``: one block per group x 128 K rows x 256 N
+    columns, whose producer warp streams the group's tiles in 64-row
+    pieces by TMA while two warpgroups sum them with wgmma.  Other bf16
+    shapes and fp32 take
+    the general kernels: one block per group x 64 x 64, walking the
+    group's tiles in 16-row steps.  Every variant sums in a fixed order
+    with no atomics: the same inputs give the same bits on every launch.
     """
     return _k3w(x, dy, group_ids, groups, bm, out_dtype or x.dtype)
 

@@ -299,6 +299,51 @@ def test_wgrad_rejects_shapes_outside_the_contract():
         tg.gmm_wgrad(x, dy, gids, 0, bm=8)
 
 
+# -- K3w's launch plan ---------------------------------------------------------
+
+#: granite-moe-1b-a400m's training calls: 4,096 tokens x top-8 over 32
+#: experts, padded to 16-row tiles (tile_bound(32768, 32, 16) tiles)
+GRANITE_ROWS = tg.tile_bound(4096 * 8, 32, 16) * 16
+
+
+@pytest.mark.parametrize("k,n", [(1024, 512), (512, 1024)])
+def test_wgrad_plan_takes_tma_at_granite_training_shapes(k, n):
+    plan = tg.wgrad_plan(GRANITE_ROWS, k, n, 32, 16)
+    assert plan.variant == "tma" and plan.tile == (128, 256)
+    assert plan.grid == (k // 128 * (n // 256), 32)
+
+
+#: chip_smoke.py phase 16(a)'s sweep at K = 256, N = 200: (sizes, bm)
+SWEEP_SHAPES = [
+    ([16, 32, 0, 48], 16), ([0, 0, 16], 16), ([64], 16), ([11, 0, 33, 1], 16),
+    ([64, 128, 0, 192], 64), ([0, 0, 64], 64), ([256], 64),
+    ([35, 0, 129, 1], 64),
+    ([128, 256, 0, 384], 128), ([0, 0, 128], 128), ([512], 128),
+    ([67, 0, 257, 1], 128)]
+
+
+@pytest.mark.parametrize("sizes,bm", SWEEP_SHAPES)
+def test_wgrad_plan_at_the_sweep_shapes(sizes, bm):
+    m = tg.tile_bound(sum(sizes), len(sizes), bm) * bm
+    plan = tg.wgrad_plan(m, 256, 200, len(sizes), bm)
+    assert plan == ("tma", (128, 256), (2, len(sizes)))
+    # the same call with a base off 16 bytes takes the general kernel
+    general = tg.wgrad_plan(m, 256, 200, len(sizes), bm, aligned=False)
+    assert general == ("mma", (64, 64), (4 * 4, len(sizes)))
+
+
+@pytest.mark.parametrize("m,k,n,bm,dtype,variant", [
+    (448, 260, 100, 16, torch.bfloat16, "mma"),   # the sweep's K = 260
+    (448, 256, 100, 16, torch.bfloat16, "mma"),   # N not a multiple of 8
+    (448, 256, 200, 8, torch.bfloat16, "mma"),    # bm not a multiple of 16
+    (0, 256, 200, 16, torch.bfloat16, "mma"),     # no rows to read
+    (448, 256, 200, 16, torch.float32, "fma")])
+def test_wgrad_plan_takes_the_general_kernels(m, k, n, bm, dtype, variant):
+    plan = tg.wgrad_plan(m, k, n, 4, bm, dtype)
+    assert plan.variant == variant and plan.tile == (64, 64)
+    assert plan.grid == (-(-k // 64) * -(-n // 64), 4)
+
+
 def test_moe_sort_grads_match_jax():
     """The port's ``_moe_sort`` (K3 forward and backward, CPU path) against
     JAX's (``ragged_dot``) on the same params and input, in fp32: the grads
