@@ -198,14 +198,45 @@ the MoE on K3 forward and backward and on K3w for the weight gradient:
     (d) three steps with ``grad_compression``: finite losses and non-zero
     error-feedback residuals.
 
+Phase 17 runs granite on DTensor meshes (``repro_torch.sharding``), MoE
+``sort``, params from SEED placed by ``params_sharding`` and batches by
+``batch_sharding``:
+
+17. (a) one rank (a one-rank gloo group in this process), a (data 1,
+    model 1) ``cuda`` mesh: a 4 x 128 forward in fp32 products and in bf16
+    against the same params unsharded (SHARD_TOL_FP32 / SHARD_TOL_BF16 of
+    the largest logit; K3 exactly 3 x 24 launches); 3 AdamW steps of 8 x
+    512 tokens (``make_train_step``, fp32 master params) against 3
+    unsharded steps from the same init (losses and grad norms within
+    SHARD_TRAIN_TOL; K3 3 x 24 x 3 and K3w 3 x 24 launches a step); the
+    unsharded run's params checkpointed and restored onto the mesh through
+    ``Checkpointer.restore(..., shardings=...)``, bit for bit.
+    (b) two gloo ranks on the one card (``chip_smoke.py --shard-rank R W
+    DIR``), a (data 1, model 2) ``cuda`` mesh: each rank holds half the
+    attention heads, each expert's d_ff half and half the router's
+    columns, runs K3 on its (32, 1024, 256) / (32, 256, 1024) slabs, and
+    its fp32 logits must lie within SHARD_TP_TOL of its own unsharded
+    forward; K3 launches > 0 and collectives > 0 on each rank (all
+    ``all_reduce``: gloo takes no ``all_gather`` on CUDA tensors).  Top-k
+    is not continuous: a token whose 8th and 9th expert lie within the
+    sums' rounding of each other may pick another expert on the mesh, so
+    the logits are held to the unsharded forward routed as the sharded one
+    was, the tokens routed otherwise are counted (at most SHARD_REROUTED
+    of them in any layer) and the error of the freely routed forward is
+    reported.
+    Per case: the mesh, the first MoE layer's placements, the error, the
+    launches, and the sharded forward's time beside the unsharded one's
+    (device ms in (a), CUDA-event ms in (b), both ranks sharing the card).
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
 ``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``, phase
 14's under ``analysis`` and ``tune``, phase 15's under ``models``, phase
-16's under ``train``; the kernel line's K3 row keeps granite's replayed
-serving calls, and its ``launches`` add jamba's and the training run's;
-the K3w row holds the training replay and the training run's launches).  With
+16's under ``train``, phase 17's under ``shard``; the kernel line's K3
+row keeps granite's replayed serving calls, and its ``launches`` add
+jamba's, the training run's and phase 17(a)'s sharded runs'; the K3w row
+holds the training replay and the training runs' launches).  With
 no CUDA device it exits 2 before printing any result.
 
     python3 chip_smoke.py --sweeps
@@ -234,6 +265,11 @@ prints no result lines.
 runs phases 1 and 16 alone (the build, then K3's gradient and granite
 training), writes ``chiprun_out/chip_smoke_train.json`` and prints no
 result lines.
+
+    python3 chip_smoke.py --shard
+
+runs phases 1 and 17 alone (the build, then granite on DTensor meshes),
+writes ``chiprun_out/chip_smoke_shard.json`` and prints no result lines.
 
     python3 chip_smoke.py --grad
 
@@ -3738,6 +3774,418 @@ def train_phase(device):
     return rows, launches, k3_rows["moe_gmm_wgrad"], worst_w, worst_dx
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+#: phase 17's forward batch (tokens) and its reps for the device times
+SHARD_BATCH, SHARD_SEQ, SHARD_REPS = 4, 128, 3
+#: phase 17(a)'s training: 3 AdamW steps of phase 16's batch
+SHARD_STEPS = 3
+#: the sharded forward against the unsharded one: max|d| / max|logits|
+SHARD_TOL_FP32 = 1e-5
+SHARD_TOL_BF16 = 2e-2
+#: (b)'s ranks: fp32 products, d_ff and heads split in two, sums in
+#: another order
+SHARD_TP_TOL = 1e-4
+#: (b)'s tokens routed otherwise than unsharded, per MoE layer, at most:
+#: rounding moves a token whose 8th and 9th expert are near-tied (0-1 of
+#: 512 a layer in the first runs); a fault in the router moves most
+SHARD_REROUTED = 0.01
+SHARD_TRAIN_TOL = 1e-4
+SHARD_WORLD = 2
+SHARD_SEED = SEED + 17
+
+
+def _shard_tokens(cfg):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SHARD_SEED)
+    return torch.as_tensor(rng.integers(0, cfg.vocab,
+                                        (SHARD_BATCH, SHARD_SEQ)))
+
+
+def _moe_placements(placed):
+    """The placements of the first MoE layer's four weights."""
+    ffn = placed["blocks"][0]["ffn"]
+    return {name: str(tuple((ffn[name]["w"] if name == "router"
+                             else ffn[name]).placements))
+            for name in ("w_gate", "w_up", "w_down", "router")}
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+class RouteRecorder:
+    """While active, records each MoE layer's expert choice (``_route``'s
+    top-k, in call order) or, with ``pinned`` (an earlier recording),
+    routes each call to the recorded choice: the gates are the call's own
+    probabilities at those experts, renormalised as ``_route`` does."""
+
+    def __init__(self, pinned=None):
+        self.pinned, self.experts = pinned, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe._route
+
+        def route(logits, top_k):
+            if self.pinned is None:
+                out = self.route(logits, top_k)
+                self.experts.append(out[1].clone())
+                return out
+            experts = self.pinned[len(self.experts)]
+            self.experts.append(experts)
+            probs = torch.softmax(logits, dim=-1)
+            gates = probs.gather(1, experts)
+            return (gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9), experts, probs)
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def _rerouted(a, b):
+    """Per MoE layer, the tokens whose expert set differs in ``a`` and
+    ``b`` (two recordings)."""
+    return [int((x.sort(dim=1).values != y.sort(dim=1).values).any(dim=1)
+                .sum()) for x, y in zip(a, b)]
+
+
+def _shard_forward(model, params, mesh, tokens, label, tol, rows):
+    """Phase 17(a), one dtype: the unsharded forward, then the sharded one
+    (K3 launches from 0: exactly 3 x n_layers), error and device ms."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.sharding import (batch_sharding, distribute,
+                                      params_sharding, use_mesh)
+
+    n_moe = _moe_layers(model.cfg)
+    with torch.no_grad():
+        want = model.logits(params, tokens)
+        placed = distribute(params, params_sharding(params, mesh, model.cfg))
+        batch = distribute({"tokens": tokens},
+                           batch_sharding({"tokens": tokens}, mesh))
+        mg.gmm.launches = 0
+        with use_mesh(mesh):
+            out = model.logits(placed, batch["tokens"])
+        torch.cuda.synchronize()
+        k3 = mg.gmm.launches
+        got = out.full_tensor()
+        err = _rel(got, want)
+        exact = bool(torch.equal(got, want))
+
+        def sharded():
+            with use_mesh(mesh):
+                return model.logits(placed, batch["tokens"])
+
+        ms_s = _events_ms(sharded, SHARD_REPS)
+        ms = _events_ms(lambda: model.logits(params, tokens), SHARD_REPS)
+    row = {"case": f"forward {label}", "mesh": "(data 1, model 1)",
+           "placements": _moe_placements(placed),
+           "logits_placements": str(tuple(out.placements)),
+           "rel_err": err, "bit_identical": exact, "tol": tol,
+           "k3": k3, "k3_want": 3 * n_moe, "events_ms": ms_s,
+           "unsharded_events_ms": ms}
+    log(f"shard (a) forward {label} {SHARD_BATCH}x{SHARD_SEQ}: mesh "
+        f"{row['mesh']}, first MoE layer {row['placements']}, logits "
+        f"{row['logits_placements']}; max|d|/max|logits| {err:.3e} (tol "
+        f"{tol:g}), bit-identical {exact}; K3 {k3} (want 3 x {n_moe}); "
+        f"events ms {ms_s:.3f} vs unsharded {ms:.3f}")
+    rows.append(row)
+    if err > tol or k3 != 3 * n_moe:
+        raise SystemExit(f"shard (a) forward {label}: error {err:.3e}, K3 "
+                         f"{k3}")
+    del placed, out, got, want
+
+
+def _shard_train(model, mesh, rows):
+    """Phase 17(a)'s training: SHARD_STEPS AdamW steps unsharded, its
+    params checkpointed and restored onto the mesh (bit for bit), then the
+    same steps from the same init on the mesh; losses and grad norms
+    within SHARD_TRAIN_TOL, K3 3 x 3 x n_layers and K3w 3 x n_layers a
+    step on the mesh."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer, tree_flatten
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.sharding import (abstract_like, batch_sharding,
+                                      distribute, params_sharding, use_mesh)
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.trainer import TrainState
+
+    cfg = model.cfg
+    n_moe = _moe_layers(cfg)
+    tcfg = TrainConfig(global_batch=8, seq_len=512, lr=TRAIN_LR,
+                       warmup_steps=0, total_steps=SHARD_STEPS, remat=True,
+                       seed=SEED)
+    it = make_batch_iterator(cfg, tcfg)
+    batches = [{k: torch.as_tensor(v, device=model.device)
+                for k, v in next(it).items()} for _ in range(SHARD_STEPS)]
+    it.close()
+
+    def run(state, on_mesh):
+        step = make_train_step(model, tcfg)
+        out = []
+        for batch in batches:
+            before = _k3_launches()
+            t0 = time.perf_counter()
+            if on_mesh:
+                with use_mesh(mesh):
+                    state, m = step(state, distribute(
+                        batch, batch_sharding(batch, mesh)))
+            else:
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            made = {k: v - before[k] for k, v in _k3_launches().items()}
+            out.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "s": time.perf_counter() - t0, "launches": made})
+        return state, out
+
+    state, plain = run(init_train_state(model, SEED, tcfg), False)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    try:
+        ckpt = Checkpointer(str(work))
+        ckpt.save(SHARD_STEPS, state.params, blocking=True)
+        shardings = params_sharding(state.params, mesh, cfg)
+        t0 = time.perf_counter()
+        restored, _ = ckpt.restore(abstract_like(state.params),
+                                   shardings=shardings)
+        restore_s = time.perf_counter() - t0
+        exact = all(torch.equal(a.to_local(), b) and a.placements
+                    == s.placements for a, b, s in zip(
+                        tree_flatten(restored), tree_flatten(state.params),
+                        tree_flatten(shardings)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del state, restored
+    _free()
+    log(f"shard (a) restore: the unsharded run's step-{SHARD_STEPS} params "
+        f"restored onto the mesh in {restore_s:.1f} s, bit-identical "
+        f"{exact}")
+    if not exact:
+        raise SystemExit("shard (a) restore: restored params differ")
+
+    init = init_train_state(model, SEED, tcfg)
+    params = distribute(init.params, params_sharding(init.params, mesh, cfg))
+    del init
+    state, sharded = run(TrainState(params, adamw_init(params), None), True)
+    del state, params
+    _free()
+    want = {"moe_gmm": 3 * n_moe * 3, "moe_gmm_wgrad": 3 * n_moe}
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(plain, sharded)):
+        gaps = [abs(b[k] - a[k]) / abs(a[k]) for k in ("loss", "grad_norm")]
+        worst = max(worst, *gaps)
+        log(f"shard (a) train step {i}: loss {b['loss']:.6f} vs unsharded "
+            f"{a['loss']:.6f}, grad norm {b['grad_norm']:.6f} vs "
+            f"{a['grad_norm']:.6f} (rel {max(gaps):.2e}, tol "
+            f"{SHARD_TRAIN_TOL:g}); launches {b['launches']} (want {want}); "
+            f"host s {b['s']:.3f} vs {a['s']:.3f}")
+        if b["launches"] != want:
+            raise SystemExit(f"shard (a) train step {i}: launches "
+                             f"{b['launches']}, want {want}")
+    if worst > SHARD_TRAIN_TOL:
+        raise SystemExit(f"shard (a) train: rel gap {worst:.2e}")
+    rows.append({"case": "train", "mesh": "(data 1, model 1)",
+                 "steps": sharded, "unsharded": plain, "worst_rel": worst,
+                 "restore_exact": exact, "restore_s": restore_s})
+
+
+def shard_rank(rank, world, workdir, device):
+    """One rank of phase 17(b) (``chip_smoke.py --shard-rank R W DIR``):
+    granite at full width on a (data 1, model 2) ``cuda`` mesh over gloo,
+    in fp32 products; its logits against its own unsharded forward.
+    Writes ``DIR/rank{R}.json``; exits non-zero on a failed gate."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.sharding import (batch_sharding, distribute,
+                                      params_sharding, use_mesh)
+
+    workdir = Path(workdir)
+    # gloo: NCCL refuses two ranks of one communicator on one card; the
+    # sharded forward's only collective is all_reduce, which gloo takes on
+    # CUDA tensors
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        model = _granite(device, "sort")
+        params = model.init(seed=SEED)
+        tokens = _shard_tokens(model.cfg).to(device)
+        with Fp32Compute(), torch.no_grad():
+            with RouteRecorder() as free:
+                want = model.logits(params, tokens)
+            placed = distribute(params, params_sharding(params, mesh,
+                                                        model.cfg))
+            batch = distribute({"tokens": tokens},
+                               batch_sharding({"tokens": tokens}, mesh))
+            ffn = placed["blocks"][0]["ffn"]
+            local = {name: list((ffn[name]["w"] if name == "router"
+                                 else ffn[name]).to_local().shape)
+                     for name in ("w_gate", "w_down", "router")}
+
+            def sharded():
+                with use_mesh(mesh):
+                    return model.logits(placed, batch["tokens"])
+
+            mg.gmm.launches = 0
+            comm = CommDebugMode()
+            with comm, RouteRecorder() as routed:
+                out = sharded()
+            torch.cuda.synchronize()
+            k3 = mg.gmm.launches
+            kinds = {str(k): v for k, v in comm.get_comm_counts().items()}
+            got = out.full_tensor()
+            # the unsharded forward routed as the sharded one was: top-k
+            # is not continuous, and a token whose 8th and 9th expert lie
+            # within the sums' rounding of each other may pick another
+            with RouteRecorder(routed.experts):
+                pinned = model.logits(params, tokens)
+            err = _rel(got, pinned)
+            err_free = _rel(got, want)
+            flips = _rerouted(free.experts, routed.experts)
+            ms = _events_ms(sharded, SHARD_REPS)
+            ms_plain = _events_ms(lambda: model.logits(params, tokens),
+                                  SHARD_REPS)
+        row = {"rank": rank, "world": world,
+               "mesh": f"(data 1, model {world})",
+               "placements": _moe_placements(placed),
+               "local_shapes": local, "rel_err": err,
+               "rel_err_free_routing": err_free, "rerouted_tokens": flips,
+               "k3": k3, "collectives": kinds, "events_ms": ms,
+               "unsharded_events_ms": ms_plain}
+        print(f"shard (b) rank {rank}/{world}: mesh {row['mesh']}, first "
+              f"MoE layer {row['placements']}, local {local}; max|d|/"
+              f"max|logits| {err:.3e} vs its unsharded forward on the same "
+              f"routing (tol {SHARD_TP_TOL:g}), {err_free:.3e} routed "
+              f"freely; tokens routed otherwise per MoE layer {flips}; "
+              f"K3 {k3}; collectives {kinds}; events ms {ms:.3f} vs "
+              f"unsharded {ms_plain:.3f}", flush=True)
+        (workdir / f"rank{rank}.json").write_text(json.dumps(row))
+    finally:
+        dist.destroy_process_group()
+    moved = max(flips) / (SHARD_BATCH * SHARD_SEQ)
+    if err > SHARD_TP_TOL or moved > SHARD_REROUTED or k3 <= 0 \
+            or sum(kinds.values()) <= 0:
+        print(f"shard (b) rank {rank}: failed gates", flush=True)
+        return 1
+    return 0
+
+
+def _shard_ranks(workdir, world=SHARD_WORLD):
+    """Phase 17(b): ``world`` ranks on the one card; every rank must exit
+    0 within RANK_TIMEOUT_S."""
+    (workdir / "store").unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+         str(r), str(world), str(workdir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        outs.append(f"timed out after {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("shard (b)"):
+                log(line)
+        if p.returncode != 0:
+            log(text[-4000:])
+            raise SystemExit(f"shard (b): rank {r} exited {p.returncode}")
+    if len(outs) < world:
+        raise SystemExit("shard (b): a rank timed out")
+    return [json.loads((workdir / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def shard_phase(device):
+    """Phase 17: granite-moe-1b-a400m at full width on DTensor meshes
+    (``repro_torch.sharding``).  (a) one rank, a (data 1, model 1) ``cuda``
+    mesh over a one-rank gloo group in this process: a 4 x 128 forward in
+    fp32 and bf16 against the unsharded params, 3 training steps against 3
+    unsharded ones, an unsharded checkpoint restored onto the mesh.  (b)
+    two gloo ranks on the card, a (data 1, model 2) mesh."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.checkpointer import tree_map
+
+    t0 = time.perf_counter()
+    rows = []
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        model = _granite(device, "sort")
+        tokens = _shard_tokens(model.cfg).to(device)
+        params = model.init(seed=SEED)
+        with Fp32Compute():
+            _shard_forward(model, params, mesh, tokens, "fp32",
+                           SHARD_TOL_FP32, rows)
+        params = tree_map(lambda t: t.to(torch.bfloat16), params)
+        _shard_forward(model, params, mesh, tokens, "bf16", SHARD_TOL_BF16,
+                       rows)
+        del params
+        _free()
+        _shard_train(model, mesh, rows)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store.parent, ignore_errors=True)
+    log(f"phase 17(a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    workdir = OUT_DIR / "shard"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        ranks = _shard_ranks(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 17(b) took {time.perf_counter() - t1:.1f} s")
+    seconds = time.perf_counter() - t0
+    log(f"phase 17 (shard) took {seconds:.1f} s")
+    # the launches of (a)'s sharded runs (rank 0 of its own group)
+    steps = [st["launches"] for r in rows if r["case"] == "train"
+             for st in r["steps"]]
+    launches = {
+        "moe_gmm": sum(r["k3"] for r in rows if "k3" in r)
+        + sum(st["moe_gmm"] for st in steps),
+        "moe_gmm_wgrad": sum(st["moe_gmm_wgrad"] for st in steps)}
+    return {"one_rank": rows, "ranks": ranks, "seconds": seconds,
+            "launches": launches}
+
+
 SOURCES = {
     "stream_spmm": ("src/repro_torch/csrc/stream_spmm.cu",
                     "src/repro/kernels/stream.py:330"),
@@ -3773,6 +4221,13 @@ def main() -> int:
         torch.cuda.set_device(device)
         return dist_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3],
                          device)
+    if "--shard-rank" in args:
+        # one rank of phase 17(b), started by shard_phase
+        i = args.index("--shard-rank")
+        device = torch.device("cuda:0")
+        torch.cuda.set_device(device)
+        return shard_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3],
+                          device)
 
     OUT_DIR.mkdir(exist_ok=True)
     _LOG.append(open(OUT_DIR / "chip_smoke.log", "w"))
@@ -3819,6 +4274,13 @@ def main() -> int:
         (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(
             {"card": card, "train": train}, indent=1, default=str))
         log(f"train done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+    if "--shard" in sys.argv[1:]:
+        # phases 1 and 17 alone: granite on DTensor meshes
+        shard = shard_phase(device)
+        (OUT_DIR / "chip_smoke_shard.json").write_text(json.dumps(
+            {"card": card, "shard": shard}, indent=1, default=str))
+        log(f"shard done in {time.perf_counter() - t_start:.1f} s on {card}")
         return 0
     if "--analysis" in sys.argv[1:]:
         # phases 1 and 14 alone: verification, traces, learned, TuneDB
@@ -3898,6 +4360,12 @@ def main() -> int:
     log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s; K3 "
         f"launches of the training run {train_launches['moe_gmm']} (total "
         f"{launches['moe_gmm']}), K3w {launches['moe_gmm_wgrad']}")
+    shard = shard_phase(device)
+    for name, n in shard["launches"].items():
+        launches[name] += n
+    log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s; its "
+        f"sharded runs launched {shard['launches']} (totals K3 "
+        f"{launches['moe_gmm']}, K3w {launches['moe_gmm_wgrad']})")
 
     kernels = []
     for name, t in totals.items():
@@ -3923,7 +4391,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
          "pipeline": pipeline, "dist": dist, "analysis": analysis,
-         "tune": tune, "models": models, "train": train}, indent=1,
+         "tune": tune, "models": models, "train": train, "shard": shard},
+        indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ Two things differ from the reference, neither on disk:
 
 Async: ``save`` copies the leaves to host memory at once and writes them to
 disk on a background thread, under ``step_XXXXXXXX.tmp``, renamed when
-complete.  Restoring onto a mesh (JAX's ``shardings=``) is not ported.
+complete.  ``restore(..., shardings=...)`` places each leaf on a mesh by
+its placements (:mod:`repro_torch.sharding`), each rank keeping its own
+chunk of the stored array.
 """
 from __future__ import annotations
 
@@ -221,16 +223,31 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, *, step: Optional[int] = None, device=None):
+    def restore(self, like, *, step: Optional[int] = None, shardings=None,
+                device=None):
         """Rebuild ``like``'s tree from the checkpoint at ``step`` (default:
         the latest); returns ``(tree, step)``.
 
         ``like``'s leaves give each leaf's shape and dtype: tensors (a
         ``device="meta"`` tensor is enough) or numpy arrays.  A shape that
         differs from the stored one raises ``ValueError``.  The leaves come
-        back as tensors on ``device`` (``None``: the card).
+        back as tensors on ``device`` (``None``: the card), or, with
+        ``shardings`` (a :class:`repro_torch.sharding.NamedSharding` tree
+        beside ``like``, as ``params_sharding`` gives it), as DTensors on
+        their meshes: each rank reads the stored array and keeps its own
+        chunk, with no collective, on its own device of the mesh.
         """
         self.wait()
+        if shardings is not None:
+            from ..sharding.rules import distribute
+
+            if device is None:
+                from ..launch.mesh import process_mesh_device
+
+                mesh = tree_flatten(shardings)[0].mesh
+                device = process_mesh_device(mesh)
+            whole, step = self.restore(like, step=step, device=device)
+            return distribute(whole, shardings), step
         dev = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:

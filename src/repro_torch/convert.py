@@ -21,6 +21,11 @@ __all__ = ["encdec_params_from_jax", "ffn_params_from_jax",
 
 
 def _tensor(x, device) -> torch.Tensor:
+    if device.type == "meta":
+        # shapes and dtypes only: an abstract leaf (jax.eval_shape's
+        # ShapeDtypeStruct) is enough, and no value is read
+        return torch.empty(tuple(x.shape), device=device,
+                           dtype=getattr(torch, np.dtype(x.dtype).name))
     return torch.as_tensor(np.array(x), device=device)
 
 
@@ -72,7 +77,9 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg, *, device=None
     of period position ``j``.  The port keeps one block dict per layer, in
     layer order.  A hybrid period (jamba: 8 layers, repeated 4 times at
     full depth) and rwkv's block (its channel-mix params inside
-    ``mixer``) unstack the same way.  ``device=None`` resolves to the card.
+    ``mixer``) unstack the same way.  ``device=None`` resolves to the card;
+    ``device="meta"`` gives the port's skeleton of an abstract tree
+    (``jax.eval_shape(model.init, key)``) at any width.
     """
     dev = resolve_device(device)
     blocks = []

@@ -81,8 +81,13 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def to_host(x) -> np.ndarray:
-    """A numpy view of ``x`` (a torch tensor on any device, or array-like)."""
+    """A numpy view of ``x`` (a torch tensor on any device, or array-like).
+
+    numpy has no bf16: a bf16 tensor comes to the host as fp32, which holds
+    each of its values exactly."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -222,6 +227,7 @@ class BlockCSC:
 def dense_to_bcsr(x, block_shape, *, device=None) -> BlockCSR:
     """Compress a dense matrix to BlockCSR (host-side, concrete values)."""
     dev = target_device(x, device)
+    dtype = x.dtype if isinstance(x, torch.Tensor) else None
     x = to_host(x)
     shape = x.shape
     blocks = block_partition(x, block_shape)          # (Mb, Kb, bm, bk)
@@ -230,13 +236,14 @@ def dense_to_bcsr(x, block_shape, *, device=None) -> BlockCSR:
     data = blocks[rows, cols]
     indptr = np.zeros(occ.shape[0] + 1, dtype=np.int32)
     np.cumsum(np.bincount(rows, minlength=occ.shape[0]), out=indptr[1:])
-    return BlockCSR(torch.as_tensor(data, device=dev), indptr,
+    return BlockCSR(torch.as_tensor(data, device=dev, dtype=dtype), indptr,
                     cols.astype(np.int32), shape, tuple(block_shape))
 
 
 def dense_to_bcsc(x, block_shape, *, device=None) -> BlockCSC:
     """Compress a dense matrix to BlockCSC (host-side, concrete values)."""
     dev = target_device(x, device)
+    dtype = x.dtype if isinstance(x, torch.Tensor) else None
     x = to_host(x)
     shape = x.shape
     blocks = block_partition(x, block_shape)
@@ -245,7 +252,7 @@ def dense_to_bcsc(x, block_shape, *, device=None) -> BlockCSC:
     data = blocks[rows, cols]
     indptr = np.zeros(occ.shape[1] + 1, dtype=np.int32)
     np.cumsum(np.bincount(cols, minlength=occ.shape[1]), out=indptr[1:])
-    return BlockCSC(torch.as_tensor(data, device=dev), indptr,
+    return BlockCSC(torch.as_tensor(data, device=dev, dtype=dtype), indptr,
                     rows.astype(np.int32), shape, tuple(block_shape))
 
 

@@ -9,7 +9,10 @@ PyTorch versions.
   wrappers over those two kernels;
 - ``moe_gmm.py`` — the MoE grouped matmul ``gmm`` (K3, from
   ``csrc/moe_gmm.cu``) and its group padding, host and device forms;
-- ``ref.py`` — the dense oracle.
+- ``ops.py`` — the one-shot ``spmm_with_dataflow`` and the deprecated
+  ``flexagon_spmm`` (phase 1 and ``apply`` on every call; the plan-once
+  entry point is :func:`repro_torch.api.flexagon_plan`);
+- ``ref.py`` — the dense oracles.
 
 Plan-level dispatch lives in :mod:`repro_torch.backends.cuda`.
 """
@@ -29,4 +32,6 @@ from .stream import (  # noqa: F401
     stream_spmm,
     stream_spmm_plain,
 )
-from .ref import spmm_ref             # noqa: F401
+from .moe_gmm import gmm, pad_groups  # noqa: F401
+from .ops import flexagon_spmm, spmm_with_dataflow  # noqa: F401
+from .ref import gmm_ref, moe_combine_ref, spmm_ref  # noqa: F401

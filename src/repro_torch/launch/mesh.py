@@ -16,9 +16,12 @@ PyTorch runs one process per device, so the port takes two kinds of mesh:
 read either kind, so :mod:`repro_torch.dist.partition` keys plans by a
 mesh's shape and axis names whatever its kind; :func:`mesh_placement` adds
 what the shape leaves out (which kind, and a process mesh's ranks and
-group), so that a plan cache never serves one kind's plan to the other.  The JAX package's
-``make_production_mesh`` (a GSPMD pod mesh) is not ported yet (ROADMAP
-queue 1, item 9b).
+group), so that a plan cache never serves one kind's plan to the other.
+
+:func:`make_production_mesh` is the pod mesh the sharding rules
+(:mod:`repro_torch.sharding`) place params and batches on: a
+``DeviceMesh`` over the whole process group, ``("data", "model")`` or
+``("pod", "data", "model")``.
 """
 from __future__ import annotations
 
@@ -30,9 +33,9 @@ import torch
 
 from ..config import resolve_device
 
-__all__ = ["Mesh", "make_local_mesh", "make_virtual_mesh", "mesh_shape",
-           "mesh_axis_names", "is_process_mesh", "mesh_placement",
-           "process_mesh_device"]
+__all__ = ["Mesh", "make_local_mesh", "make_virtual_mesh",
+           "make_production_mesh", "mesh_shape", "mesh_axis_names",
+           "is_process_mesh", "mesh_placement", "process_mesh_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,30 @@ def make_virtual_mesh(n: int = 8, device=None,
 def make_local_mesh(device=None) -> Mesh:
     """The ``(1, 1)`` ``("data", "model")`` mesh of one device."""
     return Mesh((1, 1), ("data", "model"), resolve_device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """Single pod: (data=16, model=16) = 256 ranks.  Multi-pod adds a
+    pure-DP "pod" axis: (pod=2, data=16, model=16) = 512 ranks.
+
+    A ``DeviceMesh`` over the current process group, which must hold
+    exactly that many ranks.  ``device_type`` defaults to ``"cuda"``; the
+    tests build it as ``"cpu"`` over a fake process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not torch.distributed.is_initialized():
+        raise RuntimeError(
+            f"make_production_mesh needs an initialised process group of "
+            f"{math.prod(shape)} ranks (torch.distributed.init_process_group)")
+    world = torch.distributed.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} needs "
+            f"{math.prod(shape)} ranks; the process group has {world}")
+    return init_device_mesh(device_type or "cuda", shape,
+                            mesh_dim_names=axes)
 
 
 def _device_mesh_type():

@@ -13,11 +13,13 @@ does in JAX, and keeps no copy of the old one.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..sharding.act import is_dtensor, shard, split_heads
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "AttnCache",
@@ -48,9 +50,9 @@ def attn_init(gen: torch.Generator, cfg, dtype=torch.float32):
 def _project_qkv(p, cfg, x, positions):
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, s, hq, dh)
-    k = dense(p["wk"], x).reshape(b, s, hkv, dh)
-    v = dense(p["wv"], x).reshape(b, s, hkv, dh)
+    q = shard(split_heads(dense(p["wq"], x), hq), "dp", None, "model", None)
+    k = shard(split_heads(dense(p["wk"], x), hkv), "dp", None, "model", None)
+    v = shard(split_heads(dense(p["wv"], x), hkv), "dp", None, "model", None)
     if cfg.qk_norm:
         q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
         k = rmsnorm(p["knorm"], k, cfg.norm_eps)
@@ -131,6 +133,43 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return out.to(v.dtype)
 
 
+def _repeat_heads(t, heads: int):
+    """(B, S, Hkv, Dh) -> (B, S, heads, Dh), each kv head repeated in
+    place, as :func:`_repeat_kv`, in view ops that DTensor shards."""
+    b, s, hkv, dh = t.shape
+    if hkv == heads:
+        return t
+    n_rep = heads // hkv
+    return t[:, :, :, None, :].expand(b, s, hkv, n_rep, dh).reshape(
+        b, s, heads, dh)
+
+
+def _attend(q, k, v, **kw):
+    """:func:`blockwise_attention`; on DTensors, per shard of batch and
+    heads.
+
+    Heads and sequences are independent, so each rank attends its own
+    slice with plain tensors (``local_map``): K/V are repeated to the
+    query heads first and placed as the queries are, batch on the data
+    axes and heads on "model" where they were split, every other mesh dim
+    gathered."""
+    if not is_dtensor(q):
+        return blockwise_attention(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    placements = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                       else Replicate() for p in q.placements)
+    h = q.shape[2]
+    q, k, v = (t.redistribute(mesh, placements)
+               for t in (q, _repeat_heads(k, h), _repeat_heads(v, h)))
+    fn = local_map(functools.partial(blockwise_attention, **kw),
+                   out_placements=(placements,),
+                   in_placements=(placements,) * 3, device_mesh=mesh)
+    return fn(q, k, v)
+
+
 def attn_apply(p, cfg, x, positions, *, window: Optional[int] = None,
                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                causal: bool = True) -> torch.Tensor:
@@ -150,7 +189,7 @@ def attn_apply(p, cfg, x, positions, *, window: Optional[int] = None,
         causal = False
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
-    out = blockwise_attention(q, k, v, causal=causal, window=window)
+    out = _attend(q, k, v, causal=causal, window=window)
     return dense(p["wo"], out.reshape(b, s, hq * dh))
 
 

@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..sharding.act import shard
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
@@ -88,6 +89,7 @@ def _write(cache, **new):
 
 def _block_apply(p, cfg, sig: Signature, x, positions):
     mixer, ffn = sig
+    x = shard(x, "dp", "model" if cfg.context_parallel else None, None)
     if mixer == "rwkv":
         h, _, _ = rwkv_mod.rwkv_time_mix(
             p["mixer"], cfg, rmsnorm(p["norm1"], x, cfg.norm_eps))
@@ -132,6 +134,7 @@ def _block_prefill(p, cfg, sig: Signature, x, positions, cache):
     attention layer's last ``cache_len`` tokens' K/V at slots
     ``pos % cache_len``, a recurrent layer's terminal state."""
     mixer, ffn = sig
+    x = shard(x, "dp", "model" if cfg.context_parallel else None, None)
     if mixer == "rwkv":
         xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
         h, state, last_t = rwkv_mod.rwkv_time_mix(p["mixer"], cfg, xn)

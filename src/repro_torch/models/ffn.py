@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.act import shard
 from .layers import dense, dense_init
 
 __all__ = ["ffn_init", "ffn_apply", "_masked_weight"]
@@ -49,6 +50,6 @@ def ffn_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
         wd = {"w": _masked_weight(p["w_down"]["w"], p["block_mask"].T)}
     else:
         wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
-    g = torch.nn.functional.silu(dense(wg, x))
-    u = dense(wu, x)
+    g = shard(torch.nn.functional.silu(dense(wg, x)), "dp", None, "model")
+    u = shard(dense(wu, x), "dp", None, "model")
     return dense(wd, g * u)

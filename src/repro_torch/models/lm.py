@@ -17,6 +17,7 @@ from typing import Any, Dict
 import torch
 
 from ..config import resolve_device
+from ..sharding.act import shard
 from . import decoder
 from .layers import (dense, dense_init, embed_init, embedding_lookup,
                      rmsnorm, rmsnorm_init)
@@ -25,7 +26,9 @@ __all__ = ["build_model", "LM"]
 
 
 def _cross_entropy(logits, targets, mask=None):
-    logits = logits.float()
+    # on a mesh the vocab dim is gathered first: DTensor's vocab-parallel
+    # gather (its masked partial) does not take these 3-D logits
+    logits = shard(logits.float(), "dp", None, None)
     nll = torch.logsumexp(logits, dim=-1) - torch.gather(
         logits, -1, targets[..., None])[..., 0]
     if mask is None:
@@ -64,14 +67,17 @@ class LM:
     def _logits_from_h(self, params, h):
         h = rmsnorm(params["final_norm"], h, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return torch.matmul(h, params["embed"]["table"].to(h.dtype).T)
-        return dense(params["lm_head"], h)
+            logits = torch.matmul(h, params["embed"]["table"].to(h.dtype).T)
+        else:
+            logits = dense(params["lm_head"], h)
+        # vocab dim TP-sharded: the softmax/xent reduce over "model"
+        return shard(logits, "dp", None, "model")
 
     def logits(self, params, tokens, remat=True):
         """``remat`` (JAX's knob: True/"nothing", "dots" or False) applies
         only with gradients on; see :func:`decoder.checkpointed`."""
         tokens = self._tokens(tokens)
-        x = embedding_lookup(params["embed"], tokens)
+        x = shard(embedding_lookup(params["embed"], tokens), "dp", None, None)
         positions = torch.arange(tokens.shape[1], device=self.device)
         x = decoder.stack_apply(params["blocks"], self.cfg, x, positions,
                                 remat)

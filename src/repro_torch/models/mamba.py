@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.act import shard
 from .layers import dense, dense_init, normal
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_decode", "MambaCache",
@@ -120,6 +121,7 @@ def _selective_scan_chunked(p, cfg, x_conv, *, chunk: int = CHUNK,
     """
     b, s, d_inner = x_conv.shape
     dt, b_ssm, c_ssm, a = _ssm_params(p, cfg, x_conv)
+    dt = shard(dt, "dp", None, "model")
     xf = x_conv.float()
     chunk = min(chunk, s)
     h = (torch.zeros((b, d_inner, cfg.mamba_d_state), dtype=torch.float32,
@@ -130,8 +132,11 @@ def _selective_scan_chunked(p, cfg, x_conv, *, chunk: int = CHUNK,
         dtc, bc, cc, xc = dt[:, sl], b_ssm[:, sl], c_ssm[:, sl], xf[:, sl]
         decay = torch.exp(dtc[..., None] * a[None, None])     # (B,L,dI,dS)
         inc = (dtc * xc)[..., None] * bc[:, :, None, :]
+        decay = shard(decay, "dp", None, "model", None)
+        inc = shard(inc, "dp", None, "model", None)
         hs, h = _scan_chunk(h, decay, inc)
-        ys.append(torch.einsum("blds,bls->bld", hs, cc))
+        ys.append(shard(torch.einsum("blds,bls->bld", hs, cc),
+                        "dp", None, "model"))
     y = torch.cat(ys, dim=1)
     y = y + xf * p["d_skip"].float()
     return y, h
@@ -141,6 +146,8 @@ def _mamba_forward(p, cfg, x, chunk: int = CHUNK):
     """The whole-sequence pass: (output, conv state, final ssm state)."""
     xz = dense(p["in_proj"], x)
     x_in, z = torch.chunk(xz, 2, dim=-1)
+    x_in = shard(x_in, "dp", None, "model")
+    z = shard(z, "dp", None, "model")
     x_conv, conv_state = _causal_conv(x_in, p["conv_w"], p["conv_b"])
     x_conv = F.silu(x_conv)
     y, h = _selective_scan_chunked(p, cfg, x_conv, chunk=chunk)

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_gmm import gmm, pad_groups_device
+from ..sharding.act import is_dtensor, shard, sum_over_ranks
 from .layers import dense_init, normal
 
 __all__ = ["moe_init", "moe_apply", "select_moe_strategy", "MoEPlan",
@@ -62,7 +63,10 @@ def moe_init(gen: torch.Generator, cfg, dtype=torch.float32):
 
 def _router(p, x, top_k: int):
     """x: (T, D) -> (gates (T, k), experts (T, k), probs (T, E))."""
-    logits = torch.matmul(x.float(), p["router"]["w"].float())
+    return _route(torch.matmul(x.float(), p["router"]["w"].float()), top_k)
+
+
+def _route(logits, top_k: int):
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
@@ -120,10 +124,24 @@ def _moe_einsum(p, cfg, x2d, group_size: int = 4096):
     expert_in = torch.zeros((g_n, e, cap, d), dtype=x2d.dtype,
                             device=x2d.device)
     expert_in.index_put_((g_idx, experts, safe_pos), contrib, accumulate=True)
+
+    # EP stationarity: tokens-stationary replicates the (small) expert
+    # weights over DP and keeps the (G, E, C, D) buffers token-local;
+    # weights-stationary moves tokens to expert shards
+    layout = cfg.moe.ep_layout
+    if layout == "auto":
+        weight_bytes = 3 * e * d * cfg.d_ff * 2
+        dispatch_bytes = 2 * g_n * tg * k * d * 2
+        layout = "tokens" if weight_bytes < dispatch_bytes else "weights"
+    if layout == "tokens":
+        ep_spec = ("dp", None, None, "model")
+    else:
+        ep_spec = (None, "data", None, "model")
+    expert_in = shard(expert_in, *ep_spec)
     wg, wu, wd = _weights(p, x2d.dtype)
     gg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, wg))
     uu = torch.einsum("gecd,edf->gecf", expert_in, wu)
-    expert_out = torch.einsum("gecf,efd->gecd", gg * uu, wd)
+    expert_out = shard(torch.einsum("gecf,efd->gecd", gg * uu, wd), *ep_spec)
     # combine: gather each (token, slot)'s expert output, weight by gate
     gathered = expert_out[g_idx, experts, safe_pos]               # (G,Tg,k,D)
     weights = (gates * keep).to(x2d.dtype)
@@ -155,10 +173,19 @@ def _moe_scatter(p, cfg, x2d):
 
 
 def _moe_sort(p, cfg, x2d, bm: int = SORT_BM):
+    if is_dtensor(x2d):
+        return _moe_sort_sharded(p, cfg, x2d, bm)
+    gates, experts, _ = _router(p, x2d, cfg.moe.top_k)
+    return _sort_dispatch(x2d, gates, experts, _weights(p, x2d.dtype),
+                          cfg.moe.num_experts, bm)
+
+
+def _sort_dispatch(x2d, gates, experts, weights, e: int, bm: int):
+    """The sort dispatch of routed tokens: x2d (T, D), gates/experts
+    (T, k), weights (w_gate, w_up, w_down) in the activations' dtype."""
     t, d = x2d.shape
-    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    k = experts.shape[1]
     dev, dt = x2d.device, x2d.dtype
-    gates, experts, _ = _router(p, x2d, k)
     flat_expert = experts.reshape(-1)                             # (T*k,)
     flat_token = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_expert, stable=True)               # leader sort
@@ -173,7 +200,7 @@ def _moe_sort(p, cfg, x2d, bm: int = SORT_BM):
     rows = scatter.long()
     xp = torch.zeros((group_ids.shape[0] * bm, d), dtype=dt, device=dev)
     xp.index_copy_(0, rows, xs)
-    wg, wu, wd = _weights(p, dt)
+    wg, wu, wd = weights
     f = wg.shape[2]
     # bk and bn are the reference's tiling of K and N; whole extents
     # always divide, and the kernel's result does not depend on them
@@ -194,6 +221,80 @@ def _moe_sort(p, cfg, x2d, bm: int = SORT_BM):
     for j in range(k):
         out = out + contrib[at[:, j]]
     return out
+
+
+def _moe_sort_sharded(p, cfg, x2d, bm: int):
+    """The sort dispatch on DTensors: router, sort, padding, K3 and the
+    combine run on each rank's local tensors (``local_map``).
+
+    Tokens stay where they are on the data axes (tokens-stationary: the
+    expert weights are gathered over them, as the reference's
+    ``ep_layout="tokens"``).  Where "model" splits d_ff, each rank holds its
+    slice of ``w_gate``/``w_up``/``w_down``, runs K3 on it, and its output
+    is its partial sum over d_ff (``Partial`` over "model").  The router's
+    columns (experts) are then split over "model" too; the top-k needs the
+    whole (T, E) logits, which each rank assembles exactly from its columns
+    padded with zeros and one ``all_reduce`` (adding zeros is exact, and
+    gloo takes ``all_reduce`` on CUDA tensors, where it takes no
+    ``all_gather``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x2d.device_mesh
+    names = list(mesh.mesh_dim_names)
+    m_dim = names.index("model") if "model" in names else None
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    router = p["router"]["w"]
+
+    def on_model(t, dim):
+        return m_dim is not None and t.placements[m_dim] == Shard(dim)
+
+    split_f = on_model(p["w_gate"], 2)
+    split_e = split_f and on_model(router, 1)
+
+    # tokens: row shards over the data axes as they come, whole over model
+    x_pl = tuple(pl if i != m_dim and pl == Shard(0) else Replicate()
+                 for i, pl in enumerate(x2d.placements))
+    x_grad = tuple(Partial() if i == m_dim and split_f else pl
+                   for i, pl in enumerate(x_pl))
+
+    def placed(dim, split):
+        """A weight in the block, and its gradient: sharded on ``dim``
+        over "model" where ``split``; gathered over the data axes, where a
+        gradient sums over the ranks' own tokens."""
+        at = tuple(Shard(dim) if i == m_dim and split else Replicate()
+                   for i in range(mesh.ndim))
+        grad = tuple(Shard(dim) if i == m_dim and split
+                     else Partial() if (i == m_dim and split_f)
+                     or x_pl[i] == Shard(0) else Replicate()
+                     for i in range(mesh.ndim))
+        return at, grad
+
+    w = [placed(1, split_e), placed(2, split_f), placed(2, split_f),
+         placed(1, split_f)]
+
+    def block(x, router_w, wg, wu, wd):
+        logits = torch.matmul(x.float(), router_w.float())
+        if split_e:
+            rank = mesh.get_local_rank("model")
+            e_loc = logits.shape[1]
+            # each rank's gradient of the logits is its partial sum (from
+            # its d_ff slice), so the backward sums it over "model" again
+            logits = sum_over_ranks(
+                F.pad(logits, (rank * e_loc, e - (rank + 1) * e_loc)),
+                mesh.get_group("model"))
+        gates, experts, _ = _route(logits, k)
+        dt = x.dtype
+        return _sort_dispatch(x, gates, experts,
+                              (wg.to(dt), wu.to(dt), wd.to(dt)), e, bm)
+
+    out_pl = tuple(Partial() if i == m_dim and split_f else pl
+                   for i, pl in enumerate(x_pl))
+    fn = local_map(block, out_placements=(out_pl,),
+                   in_placements=(x_pl,) + tuple(at for at, _ in w),
+                   in_grad_placements=(x_grad,) + tuple(g for _, g in w),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x2d, router, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def select_moe_strategy(t: int, d: int, f: int, e: int, k: int) -> str:

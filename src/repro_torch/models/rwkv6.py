@@ -27,6 +27,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.act import shard, split_heads
 from .layers import dense, dense_init, normal, rmsnorm, rmsnorm_init
 
 __all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_channel_mix",
@@ -93,18 +94,22 @@ def _mix(x, xs, mu):
 
 
 def _time_projections(p, cfg, x, xs):
-    b, s, d = x.shape
-    h, dh = _heads(cfg)
+    h, _ = _heads(cfg)
     mu = p["mu"]
-    r = dense(p["wr"], _mix(x, xs, mu[0])).reshape(b, s, h, dh)
-    k = dense(p["wk"], _mix(x, xs, mu[1])).reshape(b, s, h, dh)
-    v = dense(p["wv"], _mix(x, xs, mu[2])).reshape(b, s, h, dh)
+    r = split_heads(dense(p["wr"], _mix(x, xs, mu[0])), h)
+    k = split_heads(dense(p["wk"], _mix(x, xs, mu[1])), h)
+    v = split_heads(dense(p["wv"], _mix(x, xs, mu[2])), h)
     g = F.silu(dense(p["wg"], _mix(x, xs, mu[4])))
     # data-dependent decay (LoRA), w in (0, 1)
     xw = _mix(x, xs, mu[3]).float()
     lora = torch.tanh(xw @ p["w_lora_a"].float()) @ p["w_lora_b"].float()
     w = torch.exp(-torch.exp(p["w0"].float() + lora))
-    return r, k, v, g, w.reshape(b, s, h, dh)
+    w = split_heads(w, h)
+
+    def sh(t):
+        return shard(t, "dp", None, "model", None)
+
+    return sh(r), sh(k), sh(v), shard(g, "dp", None, "model"), sh(w)
 
 
 def _chunked_wkv(r, k, v, w, u, s0, *, chunk: int = CHUNK):

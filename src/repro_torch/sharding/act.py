@@ -1,0 +1,147 @@
+"""Activation sharding constraints.
+
+The port of ``repro.sharding.act``.  The reference's ``with mesh:`` becomes
+:func:`use_mesh`, which names the current ``DeviceMesh``.  Inside it,
+``shard(x, *axes)`` redistributes a DTensor ``x`` to the named placements;
+with no mesh, or on a plain tensor, it returns ``x`` unchanged, so model
+code runs as it is on one device (the tests, serving) and constrained on a
+mesh.
+
+Convention: ``"dp"`` expands to the data-parallel axes ("pod", "data")
+that exist on the current mesh.  An axis whose size does not divide its
+dim is dropped, as the parameter rules drop it: DTensor keeps no uneven
+shard where GSPMD would pad.
+
+Inside :func:`use_mesh`, a plain tensor that meets a DTensor in an op counts
+as replicated (DTensor's ``implicit_replication``): positions, masks and
+RoPE tables are made per call on every rank, as under the reference's mesh
+every array that is not constrained is replicated.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+
+from .rules import _placements, _sanitize
+
+__all__ = ["use_mesh", "current_mesh", "shard", "dp_axes", "is_dtensor",
+           "split_heads", "sum_over_ranks"]
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the current mesh for :func:`shard`
+    and treat plain tensors that meet DTensors as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    token = _MESH.set(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh`, or ``None``."""
+    return _MESH.get()
+
+
+def is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _current_axis_names():
+    mesh = current_mesh()
+    if mesh is None or mesh.mesh_dim_names is None:
+        return ()
+    return tuple(mesh.mesh_dim_names)
+
+
+def dp_axes():
+    names = _current_axis_names()
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def shard(x, *axes):
+    """axes: per-dim entries of None, "model", "data", "dp", or tuples."""
+    names = _current_axis_names()
+    if not names or not is_dtensor(x):
+        return x
+    spec = []
+    for a in axes:
+        if a == "dp":
+            d = dp_axes()
+            spec.append(d if d else None)
+        elif a is None:
+            spec.append(None)
+        elif isinstance(a, tuple):
+            kept = tuple(ax for ax in a if ax in names)
+            spec.append(kept if kept else None)
+        else:
+            spec.append(a if a in names else None)
+    mesh = current_mesh()
+    placements = _placements(_sanitize(tuple(spec), x.shape, mesh),
+                             list(names))
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def split_heads(y, heads: int):
+    """``(..., heads * dh) -> (..., heads, dh)``.
+
+    On a DTensor whose last dim is sharded over mesh dims whose product
+    does not divide ``heads``, those mesh dims are gathered first: DTensor
+    cannot split an uneven shard of heads (GSPMD pads it)."""
+    shape = tuple(y.shape[:-1]) + (heads, y.shape[-1] // heads)
+    if not is_dtensor(y):
+        return y.reshape(shape)
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = y.ndim - 1
+    mesh = y.device_mesh
+    on_last = [i for i, p in enumerate(y.placements)
+               if isinstance(p, Shard) and p.dim in (last, -1)]
+    prod = 1
+    for i in on_last:
+        prod *= mesh.size(i)
+    if heads % prod:
+        placements = [Replicate() if i in on_last else p
+                      for i, p in enumerate(y.placements)]
+        y = y.redistribute(mesh, placements)
+    return y.reshape(shape)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_reduce(SUM)`` of a plain tensor over ``group``, differentiable.
+
+    For a sum of per-rank partials whose consumers are partial too: the
+    gradient that reaches each rank is its own partial sum, so the backward
+    sums it over the ranks again.  One ``all_reduce`` each way, which gloo
+    takes on CUDA tensors (it takes no ``all_gather`` there)."""
+    return _SumOverRanks.apply(x, group)

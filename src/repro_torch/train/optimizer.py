@@ -35,8 +35,9 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params) -> AdamWState:
     def zeros(p):
-        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                              device=x.device), p)
+        # zeros_like keeps a DTensor leaf's mesh and placements
+        return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                        p)
 
     leaves = tree_flatten(params)
     device = leaves[0].device if leaves else None

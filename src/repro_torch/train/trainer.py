@@ -17,6 +17,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..checkpoint.checkpointer import tree_flatten, tree_map, tree_unflatten
+from ..sharding.act import is_dtensor
 from .compression import compress_decompress, init_error_feedback
 from .optimizer import (AdamWState, adamw_init, adamw_update,
                         clip_by_global_norm, cosine_schedule, decay_mask)
@@ -45,7 +46,14 @@ def init_train_state(model, seed: int, tcfg) -> TrainState:
 
 
 def _on_device(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    # a batch placed on a mesh (DTensors) is where it belongs already
+    return {k: v if is_dtensor(v) else torch.as_tensor(v, device=device)
+            for k, v in batch.items()}
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's whole value)."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def _value_and_grad(model, params, batch, remat):
@@ -75,8 +83,8 @@ def loss_and_grads(model, tcfg, params, batch):
     if m == 1:
         return _value_and_grad(model, params, batch, tcfg.remat)
     size = next(iter(batch.values())).shape[0] // m
-    g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     l_sum = 0.0
     for i in range(m):
         mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
@@ -112,8 +120,8 @@ def make_train_step(model, tcfg):
         params, opt = adamw_update(state.params, grads, state.opt, lr=lr,
                                    weight_decay=tcfg.weight_decay,
                                    decay=decay[0])
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                   "step": opt.step}
+        metrics = {"loss": _whole(loss), "grad_norm": _whole(gnorm),
+                   "lr": lr, "step": opt.step}
         return TrainState(params, opt, ef), metrics
 
     return step
