@@ -228,15 +228,39 @@ Phase 17 runs granite on DTensor meshes (``repro_torch.sharding``), MoE
     launches, and the sharded forward's time beside the unsharded one's
     (device ms in (a), CUDA-event ms in (b), both ranks sharing the card).
 
+Phase 18 drives the launch and benchmark surfaces
+(``repro_torch.benchmarks``, ``repro_torch.examples``,
+``repro_torch.launch``):
+
+18. (a) every section of ``python -m repro_torch.benchmarks.run``, the
+    kernels section ``--quick`` on the card: K1/K2 launches > 0, every
+    apply within TOL of fp64, the ``plan_apply`` µs logged; its rows go to
+    ``chiprun_out/BENCH_kernels_h100.json``.
+    (b) the four examples on the card: ``quickstart`` (six dataflows on
+    ``reference`` and ``cuda``, K1/K2 launches > 0, every apply within
+    1e-4), ``moe_dataflows`` (einsum, scatter and sort at 64, 1024 and
+    8192 tokens: K3 3 launches a sort call, sort vs scatter within
+    LOGIT_TOL), ``serve_batch`` (10 requests) and ``train_lm`` (20 steps,
+    finite losses, the restart resumes at step 10).
+    (c) meanwhile, on the host's CPU in four processes with no card
+    visible: ``repro_torch.launch.dryrun`` and ``.roofline`` over
+    granite-moe-1b-a400m's four cells on the single-pod mesh and its
+    ``moe_sort`` ``train_4k`` cell (fake process group of 256 ranks, meta
+    tensors): every cell ``ok``, and K3/K3w FLOPs counted in the
+    ``moe_sort`` cell.  Artifacts under ``chiprun_out/launch/``.
+    Phase 18's K1/K2/K3 launches (each > 0) add to the kernels line.
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
 ``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``, phase
 14's under ``analysis`` and ``tune``, phase 15's under ``models``, phase
-16's under ``train``, phase 17's under ``shard``; the kernel line's K3
+16's under ``train``, phase 17's under ``shard``, phase 18's under
+``launch``; the kernel line's K3
 row keeps granite's replayed serving calls, and its ``launches`` add
-jamba's, the training run's and phase 17(a)'s sharded runs'; the K3w row
-holds the training replay and the training runs' launches).  With
+jamba's, the training run's, phase 17(a)'s sharded runs' and phase
+18's; the K1/K2 rows' ``launches`` add phase 18's to phases 3-4's; the
+K3w row holds the training replay and the training runs' launches).  With
 no CUDA device it exits 2 before printing any result.
 
     python3 chip_smoke.py --sweeps
@@ -270,6 +294,12 @@ result lines.
 
 runs phases 1 and 17 alone (the build, then granite on DTensor meshes),
 writes ``chiprun_out/chip_smoke_shard.json`` and prints no result lines.
+
+    python3 chip_smoke.py --launch
+
+runs phases 1 and 18 alone (the build, then the benchmarks, the examples
+and granite's dry-run and roofline cells), writes
+``chiprun_out/chip_smoke_launch.json`` and prints no result lines.
 
     python3 chip_smoke.py --grad
 
@@ -4199,6 +4229,206 @@ SOURCES = {
 }
 
 
+# -- phase 18: the launch and benchmark surfaces ------------------------------
+
+#: phase 18(c)'s CPU processes: the dry-run of granite's four cells on the
+#: single-pod mesh and of its moe_sort train cell, then the roofline that
+#: reads them; together they are given this long
+LAUNCH_TIMEOUT_S = 600
+LAUNCH_DIR = OUT_DIR / "launch"
+
+
+def _launch_run(t0):
+    """Phase 18(c)'s processes, on the host's CPU after (a)-(b) are done
+    (no card: a fake process group of 256 ranks must not meet phase 17's
+    gloo ranks, and the dry-run never touches a device): the two dry-runs
+    at once, then the two rooflines."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    dry, roof = str(LAUNCH_DIR / "dryrun"), str(LAUNCH_DIR / "roofline")
+    sort = ["--arch", GRANITE, "--shape", "train_4k", "--variant",
+            "moe_sort"]
+    stages = [
+        [["-m", "repro_torch.launch.dryrun", "--arch", GRANITE, "--out",
+          dry, "--jobs", "4"],
+         ["-m", "repro_torch.launch.dryrun", *sort, "--out", dry]],
+        [["-m", "repro_torch.launch.roofline", "--arch", GRANITE, "--out",
+          roof, "--dryrun-dir", dry],
+         ["-m", "repro_torch.launch.roofline", *sort, "--out", roof,
+          "--dryrun-dir", dry]],
+    ]
+    LAUNCH_DIR.mkdir(exist_ok=True)
+    i = 0
+    for cmds in stages:
+        procs = []
+        try:
+            for c in cmds:
+                logf = open(LAUNCH_DIR / f"proc{i}.log", "w")
+                i += 1
+                procs.append((c, logf, subprocess.Popen(
+                    [sys.executable, *c], cwd=ROOT, env=env, stdout=logf,
+                    stderr=subprocess.STDOUT)))
+            for c, logf, p in procs:
+                left = LAUNCH_TIMEOUT_S - (time.perf_counter() - t0)
+                rc = p.wait(timeout=max(1.0, left))
+                logf.close()
+                if rc:
+                    tail = Path(logf.name).read_text()[-3000:]
+                    raise SystemExit(f"launch (c): {' '.join(c)} exited "
+                                     f"{rc}:\n{tail}")
+        finally:
+            for _, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def _launch_cells(card):
+    """Gate phase 18(c)'s artifacts: every cell ``ok``, and K3/K3w FLOPs
+    counted in the moe_sort train cell."""
+    rows = []
+    for kind in ("dryrun", "roofline"):
+        files = sorted((LAUNCH_DIR / kind).glob("*.json"))
+        if len(files) != 5:
+            raise SystemExit(f"launch (c): {len(files)} {kind} cells, want 5")
+        for f in files:
+            r = json.loads(f.read_text())
+            if r["status"] != "ok":
+                raise SystemExit(f"launch (c): {kind} {f.name} is "
+                                 f"{r['status']}: {r.get('error')}")
+            by_op = r.get("flops_by_op") or r["probe"]["flops_by_op"]
+            flops = r["cost"]["flops"] if kind == "dryrun" \
+                else r["per_chip"]["flops"]
+            row = {"kind": kind, "cell": f.stem, "flops": flops,
+                   "k3_flops": by_op.get("repro_torch.gmm", 0),
+                   "k3w_flops": by_op.get("repro_torch.gmm_wgrad", 0),
+                   "seconds": r["seconds"]}
+            if kind == "dryrun":
+                row["peak_bytes"] = r["memory"]["peak_bytes_per_device"]
+                row["argument_bytes"] = r["memory"]["argument_bytes"]
+                row["collective_bytes"] = r["collective_bytes_total"]
+            else:
+                row["dominant"] = r["dominant"]
+                row["useful"] = r["useful_flops_ratio"]
+            if "moe_sort" in f.stem and "train_4k" in f.stem and not (
+                    row["k3_flops"] > 0 and row["k3w_flops"] > 0):
+                raise SystemExit(f"launch (c): {kind} {f.stem} counted no "
+                                 f"K3/K3w FLOPs: {by_op}")
+            log(f"launch (c) {kind} {f.stem}: ok, flops/chip "
+                f"{flops:.4e} (K3 {row['k3_flops']:.4e}, K3w "
+                f"{row['k3w_flops']:.4e}), {r['seconds']} s on the host CPU "
+                f"of the machine with {card} (counted on meta tensors, "
+                f"not measured on the card)")
+            rows.append(row)
+    return rows
+
+
+def _bench_rows(device, card):
+    """Phase 18(a): every section of ``repro_torch.benchmarks.run``, the
+    kernels section ``--quick`` on the card: K1/K2 must launch, and each
+    apply must lie within TOL of the fp64 product (absolute, on operands
+    of standard normal entries).  The kernels rows are also written to
+    ``chiprun_out/BENCH_kernels_h100.json``."""
+    import re
+
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.kernels import stream as ks
+
+    rows, k12 = [], 0
+    for name, mod in bench_run._sections():
+        before = ks.stream_spmm.launches + ks.stream_panel_spmm.launches
+        got = kernels_bench.run(quick=True, device=device) \
+            if name == "kernels" else mod.run()
+        k12 += ks.stream_spmm.launches + ks.stream_panel_spmm.launches \
+            - before
+        rows += got
+        log(f"launch (a) bench {name}: {len(got)} rows on {card}")
+    errs = [float(m.group(1)) for r in rows if r.name.startswith("kernels/")
+            for m in [re.search(r"max_err=([0-9.e+-]+)", r.derived)] if m]
+    worst = max(errs)
+    for r in rows:
+        if r.name.endswith("/plan_apply"):
+            log(f"launch (a) {r.name}: {r.us_per_call:.1f} us "
+                f"({r.derived}; K1/K2 launches "
+                f"{r.extra['kernel_launches']}) on {card}")
+    log(f"launch (a) K1/K2 launches {k12}; {len(errs)} applies, worst "
+        f"|err| vs fp64 {worst:.2e} (tol {TOL:g}) on {card}")
+    if k12 <= 0 or worst > TOL:
+        raise SystemExit(f"launch (a): K1/K2 launches {k12}, worst error "
+                         f"{worst:.2e}")
+    snap = {"bench": "kernels", "quick": True,
+            "device": kernels_bench._device_header(device),
+            "rows": [r.json() for r in rows if r.name.startswith("kernels/")]}
+    (OUT_DIR / "BENCH_kernels_h100.json").write_text(
+        json.dumps(snap, indent=2))
+    return [r.json() for r in rows], k12
+
+
+def _example_runs(device, card):
+    """Phase 18(b): the four examples on the card."""
+    import math
+
+    from repro_torch.examples import (moe_dataflows, quickstart,
+                                      serve_batch, train_lm)
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import stream as ks
+
+    out = {}
+    k12 = ks.stream_spmm.launches + ks.stream_panel_spmm.launches
+    q = quickstart.main(["--device", "cuda"])
+    k12 = ks.stream_spmm.launches + ks.stream_panel_spmm.launches - k12
+    log(f"launch (b) quickstart: worst |err| {q['worst_err']:.2e}, K1/K2 "
+        f"launches {q['kernel_launches']} in its six-dataflow pass "
+        f"({k12} in the whole script) on {card}")
+    if q["kernel_launches"] <= 0:
+        raise SystemExit("launch (b): quickstart launched no K1/K2")
+    out["quickstart"] = q
+    k3 = mg.gmm.launches
+    moe = moe_dataflows.main(["--device", "cuda"])
+    k3 = mg.gmm.launches - k3
+    for r in moe:
+        log(f"launch (b) moe_dataflows T={r['tokens']}: ms "
+            + " ".join(f"{s}={v:.3f}" for s, v in r["ms"].items())
+            + f"; sort vs scatter {r['rel_err']['sort']:.2e} (tol "
+            f"{LOGIT_TOL}); K3 per sort call {r['k3_per_call']:g} on {card}")
+        if r["k3_per_call"] != 3 or r["rel_err"]["sort"] > LOGIT_TOL:
+            raise SystemExit(f"launch (b): moe_dataflows {r}")
+    out["moe_dataflows"] = moe
+    served = serve_batch.main(["--device", "cuda"])
+    if len(served) != 10:
+        raise SystemExit(f"launch (b): serve_batch served {len(served)}")
+    first, second = train_lm.main(["--device", "cuda", "--steps", "20"])
+    losses = [r["loss"] for r in first + second]
+    if not all(math.isfinite(x) for x in losses) or second[0]["step"] != 10:
+        raise SystemExit(f"launch (b): train_lm {losses}, resumed at "
+                         f"{second[0]['step']}")
+    log(f"launch (b) serve_batch: {len(served)} requests; train_lm: losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, resumed at step "
+        f"{second[0]['step']} on {card}")
+    out["train_lm"] = {"losses": losses, "resumed_at": second[0]["step"]}
+    return out, k12, k3
+
+
+def launch_phase(device, card):
+    """Phase 18: the benchmarks, the examples, and granite's dry-run and
+    roofline cells.  Returns its rows and the K1/K2 and K3 launches of
+    (a) and (b)."""
+    t0 = time.perf_counter()
+    bench, k12_bench = _bench_rows(device, card)
+    examples, k12_ex, k3 = _example_runs(device, card)
+    t1 = time.perf_counter()
+    log(f"launch (a)-(b) done in {t1 - t0:.1f} s on {card}")
+    _launch_run(t1)
+    cells = _launch_cells(card)
+    log(f"launch (c) done in {time.perf_counter() - t1:.1f} s, on the "
+        f"host's CPU after (a)-(b) (machine of {card})")
+    return ({"bench": bench, "examples": examples, "cells": cells},
+            {"stream_kernels": k12_bench + k12_ex, "moe_gmm": k3})
+
+
 def main() -> int:
     import torch
 
@@ -4281,6 +4511,14 @@ def main() -> int:
         (OUT_DIR / "chip_smoke_shard.json").write_text(json.dumps(
             {"card": card, "shard": shard}, indent=1, default=str))
         log(f"shard done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
+    if "--launch" in sys.argv[1:]:
+        # phases 1 and 18 alone: benchmarks, examples, dry-run, roofline
+        launch, _ = launch_phase(device, card)
+        (OUT_DIR / "chip_smoke_launch.json").write_text(json.dumps(
+            {"card": card, "launch": launch}, indent=1, default=str))
+        log(f"launch done in {time.perf_counter() - t_start:.1f} s on "
+            f"{card}")
         return 0
     if "--analysis" in sys.argv[1:]:
         # phases 1 and 14 alone: verification, traces, learned, TuneDB
@@ -4367,6 +4605,20 @@ def main() -> int:
         f"sharded runs launched {shard['launches']} (totals K3 "
         f"{launches['moe_gmm']}, K3w {launches['moe_gmm_wgrad']})")
 
+    ks.stream_spmm.launches = ks.stream_panel_spmm.launches = 0
+    launch, launch_launches = launch_phase(device, card)
+    launch_k1 = ks.stream_spmm.launches
+    launch_k2 = ks.stream_panel_spmm.launches
+    launches["stream_spmm"] += launch_k1
+    launches["stream_panel_spmm"] += launch_k2
+    launches["moe_gmm"] += launch_launches["moe_gmm"]
+    if min(launch_k1, launch_k2, launch_launches["moe_gmm"]) <= 0:
+        raise SystemExit(f"phase 18: K1 {launch_k1}, K2 {launch_k2}, K3 "
+                         f"{launch_launches['moe_gmm']} launches")
+    log(f"phase 18 done at {time.perf_counter() - t_start:.1f} s; K1 "
+        f"{launch_k1}, K2 {launch_k2}, K3 {launch_launches['moe_gmm']} "
+        f"launches (totals {launches})")
+
     kernels = []
     for name, t in totals.items():
         src, replaces = SOURCES[name]
@@ -4391,7 +4643,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
          "pipeline": pipeline, "dist": dist, "analysis": analysis,
-         "tune": tune, "models": models, "train": train, "shard": shard},
+         "tune": tune, "models": models, "train": train, "shard": shard,
+         "launch": launch},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ smoke=True)`` returns the reduced same-family config used by CPU tests.
 All ten archs of ``repro.configs`` are registered, in its order.
 """
 from .base import (  # noqa: F401
-    ModelConfig, MoEConfig, LayerPattern, REGISTRY, get_config,
+    ModelConfig, MoEConfig, LayerPattern, REGISTRY, SHAPES, ShapeSpec,
+    get_config,
 )
 
 _LOADED = False

@@ -12,7 +12,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["ModelConfig", "MoEConfig", "LayerPattern", "TrainConfig",
-           "REGISTRY", "register", "get_config"]
+           "SHAPES", "ShapeSpec", "REGISTRY", "register", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +149,23 @@ class TrainConfig:
     param_dtype: str = "float32"
     seed: int = 0
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 REGISTRY: Dict[str, "ModelConfig"] = {}
 _SMOKE: Dict[str, "ModelConfig"] = {}

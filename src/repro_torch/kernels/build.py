@@ -64,9 +64,9 @@ def build(name: str) -> Tuple[Path, str]:
     # written under a private name, then renamed: a process that finds the
     # library never finds it half written
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,  # lint: host build
+                          stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "

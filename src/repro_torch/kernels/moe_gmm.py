@@ -10,7 +10,10 @@ row tile multiplies only its group's weight slab.
   :func:`gmm_plain`; a CUDA tensor launches the kernel of
   ``csrc/moe_gmm.cu`` (built by ``build.py`` at first use) or raises.
   ``gmm.launches`` counts kernel launches and nothing else: the forward's
-  and the backward's ``dx`` (K3 on the transposed weights).
+  and the backward's ``dx`` (K3 on the transposed weights).  Both
+  products are torch operators, ``repro_torch::gmm`` and
+  ``repro_torch::gmm_wgrad``: a meta tensor gets its output's shape, and
+  ``torch.utils.flop_counter`` counts them.
 - :func:`gmm_wgrad` (K3w) — the weight gradient
   ``dw[g] = sum over g's row tiles t of x_t^T @ dy_t``, summed in fp32:
   :func:`gmm_wgrad_plain` on the CPU, a kernel of the same source on the
@@ -33,6 +36,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 
@@ -184,12 +188,8 @@ def _check_launch(name, x, w, group_ids, out_dtype):
                          "2**31 elements per operand")
 
 
-def _k3(x, w, group_ids, bm, bk, bn, out_dtype) -> torch.Tensor:
-    """One K3 call with no autograd: the plain version for a CPU tensor,
-    else one launch of the kernel (counted in ``gmm.launches``)."""
-    if x.device.type == "cpu":
-        return gmm_plain(x, w, group_ids, bm=bm, bk=bk, bn=bn,
-                         out_dtype=out_dtype)
+def _k3_launch(x, w, group_ids, bm, bk, bn, out_dtype) -> torch.Tensor:
+    """One launch of K3 on the card (counted in ``gmm.launches``)."""
     lib = _lib()
     m, k, n, g = _check_shapes(x, w, group_ids, bm, bk, bn)
     _check_launch("gmm", x, w, group_ids, out_dtype)
@@ -216,6 +216,49 @@ def _k3(x, w, group_ids, bm, bk, bn, out_dtype) -> torch.Tensor:
                            f"({msg})")
     gmm.launches += 1
     return out
+
+
+# -- the products as torch operators ------------------------------------------
+#
+# ``repro_torch::gmm`` and ``repro_torch::gmm_wgrad`` carry K3 and K3w
+# through torch's dispatcher, so torch's instruments see them: a CPU tensor
+# runs the plain version, a CUDA tensor the kernel (or raises), a meta
+# tensor only allocates the output (the dry-run counts the products there),
+# and ``torch.utils.flop_counter`` counts each by its formula below.  No
+# other device has an implementation.
+
+
+@torch.library.custom_op("repro_torch::gmm", mutates_args=(),
+                         device_types="cpu")
+def _gmm_op(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
+            bm: int, bk: int, bn: int, out_dtype: torch.dtype
+            ) -> torch.Tensor:
+    return gmm_plain(x, w, group_ids, bm=bm, bk=bk, bn=bn,
+                     out_dtype=out_dtype)
+
+
+_gmm_op.register_kernel("cuda")(_k3_launch)
+
+
+@_gmm_op.register_fake
+def _(x, w, group_ids, bm, bk, bn, out_dtype):
+    m, _k, n, _g = _check_shapes(x, w, group_ids, bm, bk, bn)
+    return x.new_empty((m, n), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.gmm)
+def _gmm_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """``2 M K N`` over the padded rows M.  M counts the idle tiles of the
+    device padding too: the host cannot know how many are idle without a
+    sync, and the kernel skips them."""
+    (m, k), n = x_shape, w_shape[2]
+    return 2 * m * k * n
+
+
+def _k3(x, w, group_ids, bm, bk, bn, out_dtype) -> torch.Tensor:
+    """One K3 call with no autograd: the plain version for a CPU tensor,
+    one launch of the kernel for a CUDA tensor (``repro_torch::gmm``)."""
+    return torch.ops.repro_torch.gmm(x, w, group_ids, bm, bk, bn, out_dtype)
 
 
 class GroupedMatmul(torch.autograd.Function):
@@ -354,13 +397,9 @@ def wgrad_plan(m: int, k: int, n: int, groups: int, bm: int,
     return WgradLaunch(variant, tile, (blocks, groups))
 
 
-def _k3w(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
-    """One K3w call: the plain version for a CPU tensor, else the kernel
-    :func:`wgrad_plan` picks (one launch counted in
+def _k3w_launch(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
+    """One launch of the K3w kernel :func:`wgrad_plan` picks (counted in
     ``gmm_wgrad.launches``)."""
-    if x.device.type == "cpu":
-        return gmm_wgrad_plain(x, dy, group_ids, groups, bm=bm,
-                               out_dtype=out_dtype)
     lib = _lib()
     m, k, n = _check_wgrad_shapes(x, dy, group_ids, groups, bm)
     _check_launch("gmm_wgrad", x, dy, group_ids, out_dtype)
@@ -384,6 +423,39 @@ def _k3w(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
                            f"error {err} ({msg})")
     gmm_wgrad.launches += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::gmm_wgrad", mutates_args=(),
+                         device_types="cpu")
+def _gmm_wgrad_op(x: torch.Tensor, dy: torch.Tensor, group_ids: torch.Tensor,
+                  groups: int, bm: int, out_dtype: torch.dtype
+                  ) -> torch.Tensor:
+    return gmm_wgrad_plain(x, dy, group_ids, groups, bm=bm,
+                           out_dtype=out_dtype)
+
+
+_gmm_wgrad_op.register_kernel("cuda")(_k3w_launch)
+
+
+@_gmm_wgrad_op.register_fake
+def _(x, dy, group_ids, groups, bm, out_dtype):
+    _m, k, n = _check_wgrad_shapes(x, dy, group_ids, groups, bm)
+    return x.new_empty((groups, k, n), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.gmm_wgrad)
+def _gmm_wgrad_flops(x_shape, dy_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    """``2 M K N`` over the padded rows M, idle tiles included (as K3's)."""
+    (m, k), n = x_shape, dy_shape[1]
+    return 2 * m * k * n
+
+
+def _k3w(x, dy, group_ids, groups, bm, out_dtype) -> torch.Tensor:
+    """One K3w call: the plain version for a CPU tensor, one launch of the
+    kernel for a CUDA tensor (``repro_torch::gmm_wgrad``)."""
+    return torch.ops.repro_torch.gmm_wgrad(x, dy, group_ids, groups, bm,
+                                           out_dtype)
 
 
 def gmm_wgrad(x: torch.Tensor, dy: torch.Tensor, group_ids: torch.Tensor,

@@ -19,11 +19,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..sharding.act import is_dtensor, shard, split_heads
+from ..sharding.act import is_dtensor, merge_heads, shard, split_heads
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "AttnCache",
-           "init_attn_cache", "blockwise_attention"]
+           "init_attn_cache", "blockwise_attention", "write_rows",
+           "write_slot"]
 
 NEG_INF = -1e30
 
@@ -190,7 +191,7 @@ def attn_apply(p, cfg, x, positions, *, window: Optional[int] = None,
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
     out = _attend(q, k, v, causal=causal, window=window)
-    return dense(p["wo"], out.reshape(b, s, hq * dh))
+    return dense(p["wo"], merge_heads(out))
 
 
 def init_attn_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -200,6 +201,100 @@ def init_attn_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
         k=torch.zeros((batch, max_seq, hkv, dh), dtype=dtype, device=device),
         v=torch.zeros((batch, max_seq, hkv, dh), dtype=dtype, device=device),
     )
+
+
+def _replicated(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor (made on every rank
+    alike, as positions are) counts as replicated."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def write_slot(buf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor
+               ) -> torch.Tensor:
+    """``buf[b, slot[b]] = new[b]`` for every sequence b, in place, and
+    return ``buf``.  buf: (B, S, ...); slot: (B,); new: (B, ...).
+
+    On a DTensor cache each rank writes its own shard (``local_map``),
+    ``new`` and ``slot`` placed as the cache's batch and inner dims.  A
+    cache sharded along S (sequence-parallel KV) is rewritten out of place
+    instead: a rank cannot tell from its shard alone whether it holds the
+    slot; the new cache is returned."""
+    new = new.to(buf.dtype)
+    if not is_dtensor(buf):
+        buf[torch.arange(buf.shape[0], device=buf.device), slot] = new
+        return buf
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = buf.device_mesh
+    if any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
+        hit = torch.arange(buf.shape[1], device=slot.device) == slot[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (buf.dim() - 2))
+        return torch.where(hit, new[:, None], buf)
+    new_pl = tuple(Shard(p.dim - (p.dim > 0)) if isinstance(p, Shard)
+                   else Replicate() for p in buf.placements)
+    slot_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0
+                    else Replicate() for p in buf.placements)
+    new, slot = (_replicated(t, mesh).redistribute(mesh, pl)
+                 for t, pl in ((new, new_pl), (slot, slot_pl)))
+
+    def write(b_local, slot_local, new_local):
+        b_local[torch.arange(b_local.shape[0], device=b_local.device),
+                slot_local] = new_local
+        return b_local
+
+    fn = local_map(write, out_placements=(tuple(buf.placements),),
+                   in_placements=(tuple(buf.placements), slot_pl, new_pl),
+                   device_mesh=mesh)
+    return fn(buf, slot, new)
+
+
+def write_rows(buf: torch.Tensor, slots: torch.Tensor, new: torch.Tensor
+               ) -> torch.Tensor:
+    """``buf[:, slots] = new`` in place, and return ``buf``.  buf: (B, S,
+    ...); slots: (S_new,) plain; new: (B, S_new, ...).
+
+    On a DTensor cache each rank writes its own shard (``local_map``),
+    ``new`` placed as the cache; a cache sharded along S is rewritten out
+    of place (``index_copy``) and the new one returned."""
+    new = new.to(buf.dtype)
+    if not is_dtensor(buf):
+        buf[:, slots] = new
+        return buf
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
+        return buf.index_copy(1, slots, new)
+    pl = tuple(buf.placements)
+
+    def write(b_local, new_local, slots_local):
+        b_local[:, slots_local] = new_local
+        return b_local
+
+    fn = local_map(write, out_placements=(pl,),
+                   in_placements=(pl, pl, (Replicate(),) * len(pl)),
+                   device_mesh=buf.device_mesh, redistribute_inputs=True)
+    return fn(buf, new, slots)
+
+
+def _placed_as_cache(q, k_cache):
+    """On DTensors, the decode queries (B, 1, Hq, Dh) sharded as the cache
+    (B, S, Hkv, Dh) is along batch, heads and Dh, so the grouped scores
+    run on each rank's shard (a Dh shard sums over the ranks).  A head
+    shard of the cache covers whole groups of query heads."""
+    if not (is_dtensor(q) and is_dtensor(k_cache)):
+        return q
+    from torch.distributed.tensor import Replicate, Shard
+
+    return q.redistribute(q.device_mesh, tuple(
+        p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+        for p in k_cache.placements))
 
 
 def attn_decode(p, cfg, x, pos, cache: AttnCache, *,
@@ -219,12 +314,12 @@ def attn_decode(p, cfg, x, pos, cache: AttnCache, *,
 
     s_max = cache.k.shape[1]
     slot = pos % s_max if window is not None else pos
-    bidx = torch.arange(b, device=x.device)
-    cache.k[bidx, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slot] = v[:, 0].to(cache.v.dtype)
+    cache = AttnCache(write_slot(cache.k, slot, k[:, 0]),
+                      write_slot(cache.v, slot, v[:, 0]))
 
     # GQA-native decode: scores grouped by kv head, the cache never repeated
     n_rep = hq // hkv
+    q = _placed_as_cache(q, cache.k)
     qg = q.reshape(b, 1, hkv, n_rep, dh)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
                           cache.k.float()) / math.sqrt(dh)
@@ -237,4 +332,11 @@ def attn_decode(p, cfg, x, pos, cache: AttnCache, *,
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(cache.v.dtype), cache.v)
+    if is_dtensor(out):
+        # keep batch and kv-head shards, gather the rest before the flatten
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = out.redistribute(out.device_mesh, tuple(
+            p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in out.placements))
     return dense(p["wo"], out.reshape(b, 1, hq * dh)), cache

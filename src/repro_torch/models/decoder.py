@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..sharding.act import shard
+from ..sharding.act import merge_heads, shard
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import mamba as mamba_mod
@@ -148,14 +148,12 @@ def _block_prefill(p, cfg, sig: Signature, x, positions, cache):
         s = x.shape[1]
         cache_len = cache["k"].shape[1]
         q, k, v = attn._project_qkv(p["mixer"], cfg, xn, positions)
-        h = attn.blockwise_attention(q, k, v, causal=True,
-                                     window=_window(cfg, mixer))
-        h = dense(p["mixer"]["wo"],
-                  h.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim))
+        h = attn._attend(q, k, v, causal=True, window=_window(cfg, mixer))
+        h = dense(p["mixer"]["wo"], merge_heads(h))
         kk, vv = k[:, -cache_len:], v[:, -cache_len:]
         slots = positions[-kk.shape[1]:] % cache_len
-        cache["k"][:, slots] = kk.to(cache["k"].dtype)
-        cache["v"][:, slots] = vv.to(cache["v"].dtype)
+        cache["k"] = attn.write_rows(cache["k"], slots, kk)
+        cache["v"] = attn.write_rows(cache["v"], slots, vv)
     elif mixer == "mamba":
         # the terminal state comes from the same scan as the output; JAX
         # runs the scan again for it (_mamba_terminal_state), which gives

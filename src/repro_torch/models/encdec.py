@@ -27,6 +27,7 @@ from ..config import resolve_device
 from . import attention as attn
 from . import ffn as ffn_mod
 from .decoder import checkpointed
+from .lm import _cross_entropy
 from .layers import (dense, dense_init, embed_init, embedding_lookup,
                      rmsnorm, rmsnorm_init)
 
@@ -143,10 +144,8 @@ class EncDec:
         positions = torch.arange(tokens.shape[1], device=self.device)
         x = self._decoder_pass(params, x, positions, memory, remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        logits = dense(params["lm_head"], x).float()
-        targets = self._tensor(batch["targets"]).long()
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-        loss = (torch.logsumexp(logits, dim=-1) - gold).mean()
+        logits = dense(params["lm_head"], x)
+        loss = _cross_entropy(logits, self._tensor(batch["targets"]).long())
         return loss, {"loss": loss}
 
     # -- serving ------------------------------------------------------------

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..sharding.act import grad_placed, is_dtensor
+
 __all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "embed_init",
            "embedding_lookup", "rope", "apply_rope", "normal"]
 
@@ -63,7 +65,59 @@ def embedding_lookup(p, ids: torch.Tensor, compute_dtype=torch.bfloat16
                      ) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first,
     # without a full-table copy per call
-    return p["table"][ids].to(compute_dtype)
+    table = p["table"]
+    if is_dtensor(table):
+        return _sharded_lookup(table, ids, compute_dtype)
+    return table[ids].to(compute_dtype)
+
+
+def _sharded_lookup(table, ids, compute_dtype):
+    """The lookup on a DTensor table, each rank on its own shard
+    (``local_map``), the table staying as it is placed: over a mesh dim
+    that shards ``d`` the ids are gathered (they are small) and the output
+    is sharded along ``d``; over one that shards the vocab each rank
+    gathers the ids that fall in its rows and zeros for the rest, and the
+    output is the ranks' partial sum; elsewhere the ids keep their batch
+    shards.  DTensor's own indexing differentiates into an ``index_put``
+    whose sharding rule fails in some torch versions, and its
+    ``embedding`` rule's masked partial does not take these ids.  The
+    table's gradient from this use comes back in the table's placements
+    (a tied table has a second use)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    table = grad_placed(table)
+    mesh = table.device_mesh
+    names = list(mesh.mesh_dim_names)
+    d_dim = ids.dim()                     # the output's d dim
+    t_pl = tuple(pl if pl in (Shard(0), Shard(1)) else Replicate()
+                 for pl in table.placements)
+    vocab = [i for i, pl in enumerate(t_pl) if pl == Shard(0)]
+    given = ids.placements if is_dtensor(ids) else (Replicate(),) * mesh.ndim
+    id_pl = tuple(pl if pl == Shard(0) and t_pl[i] == Replicate()
+                  else Replicate() for i, pl in enumerate(given))
+    t_grad = tuple(t_pl[i] if t_pl[i] != Replicate() else Partial()
+                   if id_pl[i] == Shard(0) else Replicate()
+                   for i in range(mesh.ndim))
+    out_pl = tuple(Partial() if t_pl[i] == Shard(0)
+                   else Shard(d_dim) if t_pl[i] == Shard(1) else id_pl[i]
+                   for i in range(mesh.ndim))
+
+    def lookup(tbl, idx):
+        if not vocab:
+            return tbl[idx].to(compute_dtype)
+        n = tbl.shape[0]
+        lo = n * sum(mesh.get_local_rank(names[i]) * math.prod(
+            mesh.size(j) for j in vocab if j > i) for i in vocab)
+        hit = (idx >= lo) & (idx < lo + n)
+        rows = tbl[torch.where(hit, idx - lo, 0)]
+        return (rows * hit[..., None].to(rows.dtype)).to(compute_dtype)
+
+    fn = local_map(lookup, out_placements=(out_pl,),
+                   in_placements=(t_pl, id_pl),
+                   in_grad_placements=(t_grad, id_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(table, ids)
 
 
 def rope(positions: torch.Tensor, d_head: int, theta: float = 1e4):

@@ -17,7 +17,7 @@ from typing import Any, Dict
 import torch
 
 from ..config import resolve_device
-from ..sharding.act import shard
+from ..sharding.act import grad_placed, shard
 from . import decoder
 from .layers import (dense, dense_init, embed_init, embedding_lookup,
                      rmsnorm, rmsnorm_init)
@@ -67,7 +67,8 @@ class LM:
     def _logits_from_h(self, params, h):
         h = rmsnorm(params["final_norm"], h, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            logits = torch.matmul(h, params["embed"]["table"].to(h.dtype).T)
+            logits = torch.matmul(
+                h, grad_placed(params["embed"]["table"]).to(h.dtype).T)
         else:
             logits = dense(params["lm_head"], h)
         # vocab dim TP-sharded: the softmax/xent reduce over "model"

@@ -117,13 +117,18 @@ def _moe_einsum(p, cfg, x2d, group_size: int = 4096):
 
     # dispatch: each kept (token, slot) into its (expert, capacity) bucket;
     # dropped ones add zeros at slot 0, so the sum is order-free
-    g_idx = torch.arange(g_n, device=x2d.device)[:, None, None].expand(
-        experts.shape)
-    contrib = xg[:, :, None, :] * keep[..., None].to(x2d.dtype)
     safe_pos = torch.where(keep, pos, torch.zeros_like(pos))
-    expert_in = torch.zeros((g_n, e, cap, d), dtype=x2d.dtype,
-                            device=x2d.device)
-    expert_in.index_put_((g_idx, experts, safe_pos), contrib, accumulate=True)
+
+    def dispatch(xg, experts, safe_pos, keep):
+        g_idx = torch.arange(xg.shape[0], device=xg.device)[:, None, None]
+        contrib = xg[:, :, None, :] * keep[..., None].to(xg.dtype)
+        expert_in = torch.zeros((xg.shape[0], e, cap, d), dtype=xg.dtype,
+                                device=xg.device)
+        expert_in.index_put_((g_idx.expand(experts.shape), experts,
+                              safe_pos), contrib, accumulate=True)
+        return expert_in
+
+    expert_in = _by_group(dispatch, xg, experts, safe_pos, keep)
 
     # EP stationarity: tokens-stationary replicates the (small) expert
     # weights over DP and keeps the (G, E, C, D) buffers token-local;
@@ -139,14 +144,106 @@ def _moe_einsum(p, cfg, x2d, group_size: int = 4096):
         ep_spec = (None, "data", None, "model")
     expert_in = shard(expert_in, *ep_spec)
     wg, wu, wd = _weights(p, x2d.dtype)
-    gg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, wg))
-    uu = torch.einsum("gecd,edf->gecf", expert_in, wu)
-    expert_out = shard(torch.einsum("gecf,efd->gecd", gg * uu, wd), *ep_spec)
+
+    def experts_ffn(expert_in, wg, wu, wd):
+        gg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, wg))
+        uu = torch.einsum("gecd,edf->gecf", expert_in, wu)
+        return torch.einsum("gecf,efd->gecd", gg * uu, wd)
+
+    expert_out = shard(_experts_placed(experts_ffn, layout, expert_in, wg,
+                                       wu, wd), *ep_spec)
     # combine: gather each (token, slot)'s expert output, weight by gate
-    gathered = expert_out[g_idx, experts, safe_pos]               # (G,Tg,k,D)
-    weights = (gates * keep).to(x2d.dtype)
-    out = torch.einsum("gskd,gsk->gsd", gathered, weights)
+    def combine(expert_out, experts, safe_pos, weights):
+        g_idx = torch.arange(expert_out.shape[0],
+                             device=expert_out.device)[:, None, None]
+        gathered = expert_out[g_idx.expand(experts.shape), experts,
+                              safe_pos]                           # (G,Tg,k,D)
+        return torch.einsum("gskd,gsk->gsd", gathered, weights)
+
+    out = _by_group(combine, expert_out, experts, safe_pos,
+                    (gates * keep).to(x2d.dtype))
     return out.reshape(g_n * tg, d)[:t]
+
+
+def _experts_placed(fn, layout, expert_in, wg, wu, wd):
+    """``fn(expert_in, wg, wu, wd)``, the experts' FFN on the (G, E, C, D)
+    buffers.  On DTensors each rank runs it on its own shard
+    (``local_map``): its groups (``layout="tokens"``) or its experts
+    (``"weights"``) over the data axes, its d_ff slice over "model"; the
+    weights are gathered over the data axes for tokens-stationary, and the
+    output is the rank's partial sum over d_ff (``Partial`` over "model").
+    DTensor's own einsum views local shards in the layout it assumes, which
+    a redistributed shard need not have."""
+    if not is_dtensor(expert_in):
+        return fn(expert_in, wg, wu, wd)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = expert_in.device_mesh
+    names = list(mesh.mesh_dim_names)
+    g, e, _, _ = expert_in.shape
+    f = wg.shape[2]
+
+    def split(dim_size, axis):
+        return axis in names and mesh.size(names.index(axis)) > 1 \
+            and dim_size % mesh.size(names.index(axis)) == 0
+
+    data = [a for a in ("pod", "data") if a in names
+            and mesh.size(names.index(a)) > 1]
+    if layout != "tokens" and not split(e, "data"):
+        # experts that do not divide over the data ranks stay whole there:
+        # split the groups instead, or every data rank runs them all
+        layout = "tokens"
+    if layout == "tokens":
+        by = {a: 0 for a in data} if g % math.prod(
+            mesh.size(names.index(a)) for a in data) == 0 else {}
+    else:
+        by = {"data": 1} if split(e, "data") else {}
+    split_f = split(f, "model")
+
+    x_pl = tuple(Shard(by[a]) if a in by else Replicate() for a in names)
+    on_f = tuple(Partial() if a == "model" and split_f else p
+                 for a, p in zip(names, x_pl))
+
+    def w_pl(f_dim, grad=False):
+        """A weight's placements (or its gradient's: a sum over the
+        ranks' own groups where tokens-stationary splits them)."""
+        return tuple(
+            Shard(f_dim) if a == "model" and split_f
+            else Shard(0) if a in by and layout != "tokens"
+            else Partial() if a in by and grad
+            else Replicate() for a in names)
+
+    return local_map(fn, out_placements=(on_f,),
+                     in_placements=(x_pl, w_pl(2), w_pl(2), w_pl(1)),
+                     in_grad_placements=(on_f, w_pl(2, True), w_pl(2, True),
+                                         w_pl(1, True)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        expert_in, wg, wu, wd)
+
+
+def _by_group(fn, *ts):
+    """``fn(*ts)``, each tensor's leading dim the token groups.  On DTensors
+    each rank runs ``fn`` on its own groups (``local_map``): the groups
+    split over the data axes where they divide, everything else whole on
+    every rank, as the index dispatch and combine need (DTensor has no
+    sharding rule for an accumulating ``index_put_``)."""
+    if not any(is_dtensor(t) for t in ts):
+        return fn(*ts)
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..sharding.rules import _placements, _sanitize
+
+    mesh = next(t for t in ts if is_dtensor(t)).device_mesh
+    names = list(mesh.mesh_dim_names)
+    # a mesh dim of one rank shards nothing, and DTensor will not flatten
+    # the groups into tokens while they are "sharded" over it
+    spec = _sanitize((tuple(a for a in ("pod", "data") if a in names
+                            and mesh.size(names.index(a)) > 1),),
+                     (ts[0].shape[0],), mesh)
+    pl = _placements(spec, names)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,) * len(ts),
+                     device_mesh=mesh, redistribute_inputs=True)(*ts)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding.act import shard, split_heads
+from ..sharding.act import merge_heads, shard, split_heads
 from .layers import dense, dense_init, normal, rmsnorm, rmsnorm_init
 
 __all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_channel_mix",
@@ -170,7 +170,7 @@ def rwkv_time_mix(p, cfg, x, *, state=None, last=None):
     s0 = state if state is not None else torch.zeros(
         (b, h, dh, dh), dtype=torch.float32, device=x.device)
     y, s_fin = _chunked_wkv(r, k, v, w, p["u"], s0)
-    y = rmsnorm(p["ln_x"], y.reshape(b, s, d), cfg.norm_eps)
+    y = rmsnorm(p["ln_x"], merge_heads(y), cfg.norm_eps)
     out = dense(p["wo"], y.to(x.dtype) * g)
     return out, s_fin, x[:, -1]
 

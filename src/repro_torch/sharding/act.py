@@ -27,7 +27,7 @@ import torch
 from .rules import _placements, _sanitize
 
 __all__ = ["use_mesh", "current_mesh", "shard", "dp_axes", "is_dtensor",
-           "split_heads", "sum_over_ranks"]
+           "split_heads", "merge_heads", "grad_placed", "sum_over_ranks"]
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
@@ -120,6 +120,32 @@ def split_heads(y, heads: int):
                       for i, p in enumerate(y.placements)]
         y = y.redistribute(mesh, placements)
     return y.reshape(shape)
+
+
+def merge_heads(y):
+    """``(..., heads, dh) -> (..., heads * dh)``.
+
+    On a DTensor the gradient that comes back is placed as ``y``'s merged
+    shape was in the forward before it is split into heads again: a
+    row-parallel projection hands back a gradient sharded along
+    ``heads * dh``, which DTensor cannot split into heads that do not divide
+    over the mesh (GSPMD pads them)."""
+    return grad_placed(y.reshape(tuple(y.shape[:-2])
+                                 + (y.shape[-2] * y.shape[-1],)))
+
+
+def grad_placed(x):
+    """``x`` itself; on a DTensor, the gradient that flows back through
+    this use of ``x`` is first redistributed to ``x``'s own placements (a
+    redistribute to the placements it has: no collective forward).
+
+    For a tensor whose uses hand back gradients in placements that later
+    ops cannot take: a split of an uneven shard, or the sum of two uses'
+    gradients (a tied embedding) whose placements some torch versions
+    cannot convert into each other."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
 
 
 class _SumOverRanks(torch.autograd.Function):

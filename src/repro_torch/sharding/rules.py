@@ -284,7 +284,8 @@ def abstract_like(tree):
 
 
 def distribute(tree, shardings):
-    """Place each leaf of ``tree`` by its :class:`NamedSharding`.
+    """Place each leaf of ``tree`` (dicts, lists and NamedTuples of
+    tensors; ``None`` stays) by its :class:`NamedSharding`.
 
     Every rank holds the whole leaf and keeps its own chunk
     (``distribute_tensor(..., src_data_rank=None)``): no collective, so the
@@ -293,10 +294,14 @@ def distribute(tree, shardings):
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     def place(leaf, s):
+        if leaf is None:
+            return None
         if isinstance(leaf, dict):
             return {k: place(v, s[k]) for k, v in leaf.items()}
         if isinstance(leaf, list):
             return [place(v, t) for v, t in zip(leaf, s)]
+        if isinstance(leaf, tuple):      # a NamedTuple (a train state)
+            return type(leaf)(*(place(v, t) for v, t in zip(leaf, s)))
         if leaf.device.type == "meta":
             return DTensor.from_local(_local_chunk(leaf, s), s.mesh,
                                       s.placements, run_check=False,

@@ -73,21 +73,43 @@ def _value_and_grad(model, params, batch, remat):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def _microbatch(v, i: int, m: int):
+    """Microbatch ``i`` of ``m`` along the leading axis.
+
+    A DTensor batch sharded along it gives each rank its own rows' ``i``-th
+    chunk (when they divide), so a microbatch stays sharded as the batch
+    is; a slice of the global rows would gather them onto every rank.  The
+    microbatches then hold other rows than the global chunks, and the
+    accumulated gradient the same rows in another order."""
+    if is_dtensor(v):
+        from torch.distributed.tensor import DTensor, Shard
+
+        local = v.to_local()
+        if any(p == Shard(0) for p in v.placements) \
+                and local.shape[0] % m == 0:
+            size = local.shape[0] // m
+            return DTensor.from_local(local[i * size:(i + 1) * size],
+                                      v.device_mesh, v.placements,
+                                      run_check=False)
+    size = v.shape[0] // m
+    return v[i * size:(i + 1) * size]
+
+
 def loss_and_grads(model, tcfg, params, batch):
     """The step's loss and gradients.  ``tcfg.microbatches`` splits the
-    batch's leading axis into equal chunks whose gradients are summed in
-    fp32 in order and scaled by 1/m, as the reference's ``lax.scan`` does;
-    with one microbatch the gradients keep the parameters' dtype."""
+    batch's leading axis into equal chunks (:func:`_microbatch`) whose
+    gradients are summed in fp32 in order and scaled by 1/m, as the
+    reference's ``lax.scan`` does; with one microbatch the gradients keep
+    the parameters' dtype."""
     batch = _on_device(batch, model.device)
     m = tcfg.microbatches
     if m == 1:
         return _value_and_grad(model, params, batch, tcfg.remat)
-    size = next(iter(batch.values())).shape[0] // m
     g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
     l_sum = 0.0
     for i in range(m):
-        mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        mb = {k: _microbatch(v, i, m) for k, v in batch.items()}
         loss, grads = _value_and_grad(model, params, mb, tcfg.remat)
         g_sum = tree_map(lambda a, g: a + g.float(), g_sum, grads)
         l_sum = l_sum + loss

@@ -391,3 +391,69 @@ def test_moe_sort_grads_match_jax():
         assert got is not None and got.shape == want.shape
         scale = max(np.abs(want).max(), 1e-30)
         assert np.abs(got.numpy() - want).max() / scale < 1e-5
+
+
+# -- K3 and K3w as torch operators ----------------------------------------
+
+
+def _op_case(bm=8, sizes=(8, 16, 0, 24), k=16, n=24):
+    _, w, xp, gids, _ = _padded_case(list(sizes), bm, k=k, n=n)
+    return (torch.as_tensor(xp), torch.as_tensor(w),
+            torch.as_tensor(gids.astype(np.int32)))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gmm_op_fake_allocates_the_output(out_dtype):
+    """On meta tensors both operators only allocate the output: K3's (M, N)
+    and K3w's (G, K, N), in the dtype asked for."""
+    x, w, gids = _op_case()
+    meta = [t.to("meta") for t in (x, w, gids)]
+    out = torch.ops.repro_torch.gmm(*meta, 8, 8, 8, out_dtype)
+    assert out.device.type == "meta" and out.dtype == out_dtype
+    assert tuple(out.shape) == (x.shape[0], w.shape[2])
+    dy = torch.empty((x.shape[0], w.shape[2]), device="meta")
+    dw = torch.ops.repro_torch.gmm_wgrad(meta[0], dy, meta[2], w.shape[0], 8,
+                                         out_dtype)
+    assert tuple(dw.shape) == tuple(w.shape) and dw.dtype == out_dtype
+    # the operators' own shape checks run on meta tensors too
+    with pytest.raises(ValueError):
+        torch.ops.repro_torch.gmm(meta[0][:-8], meta[1], meta[2], 8, 8, 8,
+                                  out_dtype)
+
+
+def test_gmm_op_flop_formula_counts_padded_rows():
+    """``2 M K N`` over the padded rows, idle tiles included, for K3 (and
+    for the backward's dx, K3 on w^T) and K3w, as FlopCounterMode sees
+    them through ``GroupedMatmul``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x, w, gids = _op_case()
+    gids[-1] = tg.IDLE                        # an idle tile still counts
+    (m, k), n = x.shape, w.shape[2]
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    with FlopCounterMode(display=False) as fc:
+        out = tg.gmm(x, w, gids, bm=8, bk=8, bn=8)
+        out.sum().backward()
+    counts = {str(op): c for op, c in fc.get_flop_counts()["Global"].items()}
+    assert counts["repro_torch.gmm"] == 2 * (2 * m * k * n)      # fwd + dx
+    assert counts["repro_torch.gmm_wgrad"] == 2 * m * k * n
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.gmm(x.detach().to("meta"), w.detach().to("meta"),
+                                  gids.to("meta"), 8, 8, 8, torch.float32)
+    assert fc.get_total_flops() == 2 * m * k * n
+
+
+def test_gmm_ops_keep_the_plain_results_on_the_cpu():
+    """Through the operators the CPU runs exactly the plain versions."""
+    x, w, gids = _op_case()
+    got = torch.ops.repro_torch.gmm(x, w, gids, 8, 8, 8, torch.float32)
+    want = tg.gmm_plain(x, w, gids, bm=8, bk=8, bn=8)
+    assert torch.equal(got, want)
+    assert torch.equal(tg.gmm(x, w, gids, bm=8, bk=8, bn=8), want)
+    dy = torch.randn((x.shape[0], w.shape[2]),
+                     generator=torch.Generator().manual_seed(3))
+    got = torch.ops.repro_torch.gmm_wgrad(x, dy, gids, w.shape[0], 8,
+                                          torch.float32)
+    assert torch.equal(got, tg.gmm_wgrad_plain(x, dy, gids, w.shape[0], bm=8))
+    assert torch.equal(tg.gmm_wgrad(x, dy, gids, w.shape[0], bm=8), got)

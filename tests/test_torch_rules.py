@@ -128,7 +128,13 @@ def _kernel_case(kernel):
                                     "gmm"])
 def test_failed_build_raises_instead_of_plain(kernel, monkeypatch, tmp_path):
     """A tensor off the CPU takes the kernel path; the build fails; the call
-    raises, and no launch is counted."""
+    raises, and no launch is counted.
+
+    K3 is the operator ``repro_torch::gmm``: a CUDA tensor reaches its
+    CUDA implementation, which is called here through the dispatcher's
+    CUDA key on meta tensors; a meta tensor given to ``gmm`` itself takes
+    the operator's fake implementation (the output's shape, no build, no
+    launch)."""
     fn, args, kw = _kernel_case(kernel)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_LIBS", {})
@@ -137,8 +143,19 @@ def test_failed_build_raises_instead_of_plain(kernel, monkeypatch, tmp_path):
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
             for a in args]
     before = fn.launches
+    kernel_path = fn
+    if kernel == "gmm":
+        cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+
+        def kernel_path(x, w, gids, bm, bk, bn):
+            return torch.ops.repro_torch.gmm.default.redispatch(
+                cuda, x, w, gids, bm, bk, bn, x.dtype)
+
+        fake = fn(*meta, **kw)
+        assert fake.device.type == "meta" and fake.shape == (16, 16)
+        assert not list(tmp_path.iterdir())             # nothing was built
     with pytest.raises(RuntimeError, match="build failed"):
-        fn(*meta, **kw)
+        kernel_path(*meta, **kw)
     assert fn.launches == before
     # the same call on CPU tensors runs the plain version
     out = fn(*args, **kw)
