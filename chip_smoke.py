@@ -224,9 +224,21 @@ Phase 17 runs granite on DTensor meshes (``repro_torch.sharding``), MoE
     was, the tokens routed otherwise are counted (at most SHARD_REROUTED
     of them in any layer) and the error of the freely routed forward is
     reported.
+    (c) two gloo ranks on the one card (``chip_smoke.py --shard-dp-rank R
+    W DIR``), a (data 2, model 1) ``cuda`` mesh, granite at SHARD_DP_LAYERS
+    of its 24 layers at full width, params whole on each rank: 3 AdamW
+    steps of a 4 x 128 batch in 4 microbatches, whose single rows do not
+    divide over the 2 data ranks, each rank's share padded to one row
+    (``trainer.loss_and_grads``), in fp32 products, against the same 3
+    steps unsharded on the same microbatches: losses and params after
+    step 3 within SHARD_TRAIN_TOL, only ``all_reduce`` (CommDebugMode),
+    K3 9 x 12 x 4 and K3w 3 x 12 x 4 launches a step, and every forward K3
+    call on one padded row's tokens x top-8 (padded per group), not the
+    microbatch's two rows.
     Per case: the mesh, the first MoE layer's placements, the error, the
     launches, and the sharded forward's time beside the unsharded one's
-    (device ms in (a), CUDA-event ms in (b), both ranks sharing the card).
+    (device ms in (a), CUDA-event ms in (b), both ranks sharing the card);
+    (c)'s step times on the host clock.
 
 Phase 18 drives the launch and benchmark surfaces
 (``repro_torch.benchmarks``, ``repro_torch.examples``,
@@ -256,12 +268,13 @@ Its last two lines are ``{"kernels": [...]}`` and
 ``chiprun_out/chip_smoke.json`` (phase 13's rows under ``dist``, phase
 14's under ``analysis`` and ``tune``, phase 15's under ``models``, phase
 16's under ``train``, phase 17's under ``shard``, phase 18's under
-``launch``; the kernel line's K3
-row keeps granite's replayed serving calls, and its ``launches`` add
-jamba's, the training run's, phase 17(a)'s sharded runs' and phase
-18's; the K1/K2 rows' ``launches`` add phase 18's to phases 3-4's; the
-K3w row holds the training replay and the training runs' launches).  With
-no CUDA device it exits 2 before printing any result.
+``launch``; the kernel line's K3 row keeps granite's replayed serving
+calls, and its ``launches`` add jamba's, the training run's, phase
+17(a)'s and 17(c)'s (both ranks') sharded runs' and phase 18's; the
+K1/K2 rows' ``launches`` add phase 18's to phases 3-4's; the K3w row
+holds the training replay and the training runs' and phase 17's sharded
+runs' launches).  With no CUDA device it exits 2 before printing any
+result.
 
     python3 chip_smoke.py --sweeps
 
@@ -3823,6 +3836,12 @@ SHARD_REROUTED = 0.01
 SHARD_TRAIN_TOL = 1e-4
 SHARD_WORLD = 2
 SHARD_SEED = SEED + 17
+#: (c)'s ranks: granite at its published widths and SHARD_DP_LAYERS of its
+#: 24 layers (two ranks each hold a sharded and an unsharded AdamW state:
+#: at full depth ~37 GB a rank), a 4 x 128 batch in 4 microbatches over
+#: (data 2, model 1): one row a microbatch, each rank's share padded to one
+SHARD_DP_LAYERS = 12
+SHARD_DP_BATCH, SHARD_DP_SEQ, SHARD_DP_MICRO = 4, 128, 4
 
 
 def _shard_tokens(cfg):
@@ -4122,12 +4141,13 @@ def shard_rank(rank, world, workdir, device):
     return 0
 
 
-def _shard_ranks(workdir, world=SHARD_WORLD):
-    """Phase 17(b): ``world`` ranks on the one card; every rank must exit
-    0 within RANK_TIMEOUT_S."""
+def _shard_ranks(workdir, world=SHARD_WORLD, part="b"):
+    """Phase 17(``part``), (b) or (c): ``world`` ranks on the one card;
+    every rank must exit 0 within RANK_TIMEOUT_S."""
+    flag = {"b": "--shard-rank", "c": "--shard-dp-rank"}[part]
     (workdir / "store").unlink(missing_ok=True)
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag,
          str(r), str(world), str(workdir)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     outs = []
@@ -4143,15 +4163,198 @@ def _shard_ranks(workdir, world=SHARD_WORLD):
                 p.communicate()
     for r, (p, text) in enumerate(zip(procs, outs)):
         for line in text.splitlines():
-            if line.startswith("shard (b)"):
+            if line.startswith(f"shard ({part})"):
                 log(line)
         if p.returncode != 0:
             log(text[-4000:])
-            raise SystemExit(f"shard (b): rank {r} exited {p.returncode}")
+            raise SystemExit(f"shard ({part}): rank {r} exited "
+                             f"{p.returncode}")
     if len(outs) < world:
-        raise SystemExit("shard (b): a rank timed out")
+        raise SystemExit(f"shard ({part}): a rank timed out")
     return [json.loads((workdir / f"rank{r}.json").read_text())
             for r in range(world)]
+
+
+def shard_dp_rank(rank, world, workdir, device):
+    """One rank of phase 17(c) (``chip_smoke.py --shard-dp-rank R W DIR``):
+    granite at its published widths, SHARD_DP_LAYERS layers, MoE ``sort``,
+    3 AdamW steps of a SHARD_DP_BATCH x SHARD_DP_SEQ batch in
+    SHARD_DP_MICRO microbatches on a (data ``world``, model 1) ``cuda``
+    mesh over gloo (params whole on each rank, the batch's rows split),
+    in fp32 products, against the same 3 steps unsharded on this rank.  The microbatches' rows do not divide the data ranks:
+    each rank pads its share to one row, so K3 must see one padded row's
+    tokens x top-k a forward call, not the whole microbatch's.  The
+    unsharded run takes the batch's rows in the order of the sharded
+    microbatches (``trainer.microbatch_rows``), so both runs form the same
+    microbatches.  Each sharded step also reports the host seconds spent in
+    its collectives (each c10d op between two device synchronizations, so
+    the step itself runs a little slower).  Writes ``DIR/rank{R}.json``;
+    exits non-zero on a failed gate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.checkpoint.checkpointer import tree_flatten, tree_map
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels.moe_gmm import tile_bound
+    from repro_torch.models import build_model, moe
+    from repro_torch.sharding import (NamedSharding, batch_sharding,
+                                      distribute, use_mesh)
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.trainer import TrainState, microbatch_rows
+
+    workdir = Path(workdir)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (world, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(_train_cfg(), n_layers=SHARD_DP_LAYERS)
+        model = build_model(cfg, device=device)
+        n_moe = _moe_layers(cfg)
+        tcfg = TrainConfig(global_batch=SHARD_DP_BATCH, seq_len=SHARD_DP_SEQ,
+                           microbatches=SHARD_DP_MICRO, lr=TRAIN_LR,
+                           warmup_steps=0, total_steps=SHARD_STEPS,
+                           remat=True, seed=SEED)
+        it = make_batch_iterator(cfg, tcfg)
+        batches = [{k: torch.as_tensor(v, device=device)
+                    for k, v in next(it).items()}
+                   for _ in range(SHARD_STEPS)]
+        it.close()
+        order = torch.as_tensor(np.concatenate(microbatch_rows(
+            SHARD_DP_BATCH, SHARD_DP_MICRO, world)), device=device)
+        per_rank = -(-(SHARD_DP_BATCH // SHARD_DP_MICRO) // world)
+        want_rows = tile_bound(per_rank * SHARD_DP_SEQ * cfg.moe.top_k,
+                               cfg.moe.num_experts, moe.SORT_BM) \
+            * moe.SORT_BM
+        rows, gmm = [], moe.gmm
+
+        def counted(x, w, group_ids, **kw):
+            rows.append(int(x.shape[0]))
+            return gmm(x, w, group_ids, **kw)
+
+        class CollectiveClock(TorchDispatchMode):
+            """Host seconds inside c10d ops (a collective, or the wait for
+            one), the device synchronized before and after each.  A DTensor
+            op is handed back to DTensor (as ``CommDebugMode`` does), so the
+            collectives it desugars into come here."""
+            seconds, calls = 0.0, 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                if getattr(func, "namespace", "") not in ("_c10d_functional",
+                                                          "c10d"):
+                    return func(*args, **(kwargs or {}))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = func(*args, **(kwargs or {}))
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+                # a collective; not its wait or its autograd wrapper
+                self.calls += not str(func).split(".")[1].startswith(
+                    ("wait", "_"))
+                return out
+
+        clock = CollectiveClock()
+
+        def run(state, on_mesh):
+            step = make_train_step(model, tcfg)
+            out = []
+            for batch in batches:
+                before = _k3_launches()
+                comm_s, calls = clock.seconds, clock.calls
+                t0 = time.perf_counter()
+                if on_mesh:
+                    with use_mesh(mesh), clock:
+                        state, m = step(state, distribute(
+                            batch, batch_sharding(batch, mesh)))
+                else:
+                    state, m = step(state, {k: v[order]
+                                            for k, v in batch.items()})
+                torch.cuda.synchronize()
+                made = {k: v - before[k] for k, v in _k3_launches().items()}
+                out.append({"loss": float(m["loss"]),
+                            "s": time.perf_counter() - t0,
+                            "collective_s": clock.seconds - comm_s,
+                            "collective_calls": clock.calls - calls,
+                            "launches": made})
+            return state, out
+
+        with Fp32Compute():
+            state, plain = run(init_train_state(model, SEED, tcfg), False)
+            want_params = [p.detach().clone() for p in
+                           tree_flatten(state.params)]
+            del state
+            _free()
+            # every param whole on both ranks (plain data parallelism):
+            # params_sharding's FSDP split over "data" needs all_gather,
+            # which gloo does not take on CUDA tensors
+            init = init_train_state(model, SEED, tcfg)
+            params = distribute(init.params, tree_map(
+                lambda _: NamedSharding(mesh, ()), init.params))
+            del init
+            comm = CommDebugMode()
+            moe.gmm = counted
+            try:
+                with comm:
+                    state, sharded = run(
+                        TrainState(params, adamw_init(params), None), True)
+            finally:
+                moe.gmm = gmm
+            torch.cuda.synchronize()
+        kinds = {str(k): v for k, v in comm.get_comm_counts().items()}
+        loss_gap = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+                       for a, b in zip(plain, sharded))
+        param_gap = max(float((b.full_tensor() - a).abs().max()
+                              / a.abs().max().clamp_min(1e-30))
+                        for a, b in zip(want_params,
+                                        tree_flatten(state.params)))
+        del state, params, want_params
+        _free()
+        k3_step = 9 * n_moe * SHARD_DP_MICRO
+        want = {"moe_gmm": k3_step, "moe_gmm_wgrad": 3 * n_moe
+                * SHARD_DP_MICRO}
+        row = {"rank": rank, "world": world,
+               "mesh": f"(data {world}, model 1)", "layers": cfg.n_layers,
+               "steps": sharded, "unsharded": plain, "loss_gap": loss_gap,
+               "param_gap": param_gap, "k3_rows": sorted(set(rows)),
+               "k3_forward_calls": len(rows), "k3_rows_want": want_rows,
+               "collectives": kinds, "launches_want": want}
+        for i, (a, b) in enumerate(zip(plain, sharded)):
+            print(f"shard (c) rank {rank}/{world} step {i}: loss "
+                  f"{b['loss']:.6f} vs unsharded {a['loss']:.6f}; launches "
+                  f"{b['launches']} (want {want}); host s {b['s']:.3f} "
+                  f"({b['collective_s']:.3f} s in {b['collective_calls']} "
+                  f"collectives) vs {a['s']:.3f}", flush=True)
+        print(f"shard (c) rank {rank}/{world}: mesh {row['mesh']}, granite "
+              f"at {cfg.n_layers} of 24 layers, {SHARD_DP_BATCH}x"
+              f"{SHARD_DP_SEQ} tokens in {SHARD_DP_MICRO} microbatches; "
+              f"worst loss gap {loss_gap:.2e}, params after step "
+              f"{SHARD_STEPS} {param_gap:.2e} of each leaf's largest (tol "
+              f"{SHARD_TRAIN_TOL:g}); rows into K3 a forward call "
+              f"{row['k3_rows']} over {len(rows)} calls (want {want_rows}: "
+              f"{per_rank} padded row of {SHARD_DP_SEQ} tokens x top-"
+              f"{cfg.moe.top_k}); collectives {kinds}", flush=True)
+        (workdir / f"rank{rank}.json").write_text(json.dumps(row))
+    finally:
+        dist.destroy_process_group()
+    ok = (loss_gap <= SHARD_TRAIN_TOL and param_gap <= SHARD_TRAIN_TOL
+          and set(rows) == {want_rows}
+          and all(st["launches"] == want for st in sharded)
+          and kinds and all("all_reduce" in k for k in kinds))
+    if not ok:
+        print(f"shard (c) rank {rank}: failed gates", flush=True)
+        return 1
+    return 0
 
 
 def shard_phase(device):
@@ -4203,17 +4406,27 @@ def shard_phase(device):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase 17(b) took {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        dp_ranks = _shard_ranks(workdir, part="c")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 17(c) took {time.perf_counter() - t2:.1f} s")
     seconds = time.perf_counter() - t0
     log(f"phase 17 (shard) took {seconds:.1f} s")
-    # the launches of (a)'s sharded runs (rank 0 of its own group)
+    # the launches of (a)'s sharded runs (rank 0 of its own group) and of
+    # (c)'s sharded runs on both ranks
     steps = [st["launches"] for r in rows if r["case"] == "train"
-             for st in r["steps"]]
+             for st in r["steps"]] + [st["launches"] for r in dp_ranks
+                                      for st in r["steps"]]
     launches = {
         "moe_gmm": sum(r["k3"] for r in rows if "k3" in r)
         + sum(st["moe_gmm"] for st in steps),
         "moe_gmm_wgrad": sum(st["moe_gmm_wgrad"] for st in steps)}
-    return {"one_rank": rows, "ranks": ranks, "seconds": seconds,
-            "launches": launches}
+    return {"one_rank": rows, "ranks": ranks, "dp_ranks": dp_ranks,
+            "seconds": seconds, "launches": launches}
 
 
 SOURCES = {
@@ -4451,13 +4664,14 @@ def main() -> int:
         torch.cuda.set_device(device)
         return dist_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3],
                          device)
-    if "--shard-rank" in args:
-        # one rank of phase 17(b), started by shard_phase
-        i = args.index("--shard-rank")
+    if "--shard-rank" in args or "--shard-dp-rank" in args:
+        # one rank of phase 17(b) or 17(c), started by shard_phase
+        flag = "--shard-rank" if "--shard-rank" in args else "--shard-dp-rank"
+        i = args.index(flag)
         device = torch.device("cuda:0")
         torch.cuda.set_device(device)
-        return shard_rank(int(args[i + 1]), int(args[i + 2]), args[i + 3],
-                          device)
+        fn = shard_rank if flag == "--shard-rank" else shard_dp_rank
+        return fn(int(args[i + 1]), int(args[i + 2]), args[i + 3], device)
 
     OUT_DIR.mkdir(exist_ok=True)
     _LOG.append(open(OUT_DIR / "chip_smoke.log", "w"))

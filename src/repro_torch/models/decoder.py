@@ -19,6 +19,7 @@ makes them.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -74,9 +75,9 @@ def _window(cfg, mixer: str) -> Optional[int]:
     return cfg.swa_window if mixer == "swa" else None
 
 
-def _ffn(p, cfg, ffn: str, xn):
+def _ffn(p, cfg, ffn: str, xn, valid=None):
     if ffn == "moe":
-        return moe_mod.moe_apply(p["ffn"], cfg, xn)
+        return moe_mod.moe_apply(p["ffn"], cfg, xn, valid=valid)
     return ffn_mod.ffn_apply(p["ffn"], cfg, xn)
 
 
@@ -87,7 +88,7 @@ def _write(cache, **new):
     return cache
 
 
-def _block_apply(p, cfg, sig: Signature, x, positions):
+def _block_apply(p, cfg, sig: Signature, x, positions, valid=None):
     mixer, ffn = sig
     x = shard(x, "dp", "model" if cfg.context_parallel else None, None)
     if mixer == "rwkv":
@@ -107,7 +108,7 @@ def _block_apply(p, cfg, sig: Signature, x, positions):
         raise ValueError(mixer)
     x = x + h
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, ffn, xn)
+    return x + _ffn(p, cfg, ffn, xn, valid)
 
 
 def init_layer_cache(cfg, sig: Signature, batch: int, max_seq: int,
@@ -221,7 +222,13 @@ def checkpointed(fn: Callable, remat) -> Callable:
     ``True``/``"nothing"`` saves only ``fn``'s inputs and recomputes the
     rest in the backward, ``"dots"`` also keeps the matmul outputs
     (selective checkpointing), ``False``/``None`` is ``fn`` itself.  With
-    gradients off there is nothing to save, and ``fn`` runs as it is."""
+    gradients off there is nothing to save, and ``fn`` runs as it is.
+
+    ``fn`` runs, and runs again in the backward, in a copy of the caller's
+    context variables (the current mesh, ``gathered_params``): on CUDA the
+    backward runs on autograd's device thread, which does not inherit
+    them, and a recomputation that saw other values would place its
+    products otherwise."""
     if remat is False or remat is None or not torch.is_grad_enabled():
         return fn
     kw: Dict[str, Any] = {}
@@ -231,14 +238,16 @@ def checkpointed(fn: Callable, remat) -> Callable:
     elif remat not in (True, "nothing"):
         raise ValueError(f"remat: want False, True, 'nothing' or 'dots', "
                          f"got {remat!r}")
-    return functools.partial(checkpoint, fn, use_reentrant=False,
-                             preserve_rng_state=False, **kw)
+    return functools.partial(checkpoint, contextvars.copy_context().run, fn,
+                             use_reentrant=False, preserve_rng_state=False,
+                             **kw)
 
 
-def stack_apply(params, cfg, x, positions, remat=True):
+def stack_apply(params, cfg, x, positions, remat=True, valid=None):
     """The stack over ``x``; each period of each segment (one layer, or
     jamba's 8) is one body checkpointed under ``remat``
-    (:func:`checkpointed`)."""
+    (:func:`checkpointed`).  ``valid``: the token mask of a padded
+    microbatch (:meth:`repro_torch.models.lm.LM.logits`)."""
     i = 0
     for period, count in cfg.segments():
         for _ in range(count):
@@ -246,7 +255,7 @@ def stack_apply(params, cfg, x, positions, remat=True):
 
             def body(xc, layers=layers, period=period):
                 for p, sig in zip(layers, period):
-                    xc = _block_apply(p, cfg, sig, xc, positions)
+                    xc = _block_apply(p, cfg, sig, xc, positions, valid)
                 return xc
 
             x = checkpointed(body, remat)(x)

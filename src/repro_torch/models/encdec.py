@@ -144,8 +144,9 @@ class EncDec:
         positions = torch.arange(tokens.shape[1], device=self.device)
         x = self._decoder_pass(params, x, positions, memory, remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        logits = dense(params["lm_head"], x)
-        loss = _cross_entropy(logits, self._tensor(batch["targets"]).long())
+        logits = dense(params["lm_head"], x, split_out=True)
+        loss = _cross_entropy(logits, self._tensor(batch["targets"]).long(),
+                              batch.get("mask"))
         return loss, {"loss": loss}
 
     # -- serving ------------------------------------------------------------

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..sharding.act import grad_placed, is_dtensor
+from ..sharding.act import grad_placed, is_dtensor, params_gathered
 
 __all__ = ["dense_init", "dense", "rmsnorm_init", "rmsnorm", "embed_init",
            "embedding_lookup", "rope", "apply_rope", "normal"]
@@ -37,12 +37,74 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def dense(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w (+ b)`` with both operands in ``compute_dtype``."""
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+def dense(p, x: torch.Tensor, compute_dtype=torch.bfloat16, *,
+          split_out: bool = False) -> torch.Tensor:
+    """``x @ w (+ b)`` with both operands in ``compute_dtype``.
+    ``split_out``: in a placed product (:func:`_dense_placed`), a d_out
+    that "model" does not divide (an lm_head's vocab) is still split over
+    it, padded, as GSPMD pads the reference's vocab-sharded logits."""
+    w = p["w"]
+    if params_gathered() and is_dtensor(x) and is_dtensor(w):
+        y = _dense_placed(x, w, compute_dtype, split_out)
+    else:
+        y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
+
+
+def _dense_placed(x, w, compute_dtype, split_out=False):
+    """``x @ w`` on each rank's shards, for a weight gathered over the data
+    axes (``sharding.act.gathered_params``), as GSPMD places it: rows stay
+    split as ``x``'s are; a weight split on d_out over a mesh dim
+    (column-parallel) gives an output split on d_out there, one split on
+    d_in (row-parallel) takes ``x`` split on d_in and gives the ranks'
+    partial sums; a whole weight's gradient is the ranks' partial sum over
+    their rows.  With ``split_out``, a weight whole on "model" gives each
+    rank there its chunk of d_out (``Shard``'s uneven chunks), its
+    gradient a partial sum.  DTensor's own strategy for these operands
+    moves rows onto every data rank and forms whole-weight gradients on
+    every rank of the other axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, last = w.device_mesh, x.ndim - 1
+    names = mesh.mesh_dim_names or ()
+    n_out, cols = w.shape[1], slice(None)
+    x_pl, out_pl, x_grad, w_grad = [], [], [], []
+    for d, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        rows = xp if isinstance(xp, Shard) and xp.dim % x.ndim != last \
+            else Replicate()
+        if wp == Shard(1):               # column-parallel
+            x_pl.append(Replicate())
+            out_pl.append(Shard(last))
+            x_grad.append(Partial())
+            w_grad.append(wp)
+        elif wp == Shard(0):             # row-parallel
+            x_pl.append(Shard(last))
+            out_pl.append(Partial())
+            x_grad.append(Shard(last))
+            w_grad.append(wp)
+        elif split_out and names[d] == "model" and mesh.size(d) > 1:
+            chunk = -(-n_out // mesh.size(d))
+            lo = min(mesh.get_local_rank(d) * chunk, n_out)
+            cols = slice(lo, min(lo + chunk, n_out))
+            x_pl.append(Replicate())
+            out_pl.append(Shard(last))
+            x_grad.append(Partial())
+            w_grad.append(Partial())
+        else:
+            x_pl.append(rows)
+            out_pl.append(rows)
+            x_grad.append(rows)
+            w_grad.append(Partial() if isinstance(rows, Shard)
+                          else Replicate())
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad)
+    wl = w.to_local(grad_placements=w_grad)[:, cols]
+    y = torch.matmul(xl.to(compute_dtype), wl.to(compute_dtype))
+    shape = x.shape[:-1] + (n_out,)
+    stride = tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+    return DTensor.from_local(y, mesh, out_pl, run_check=False, shape=shape,
+                              stride=stride)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device=None):

@@ -70,22 +70,25 @@ class LM:
             logits = torch.matmul(
                 h, grad_placed(params["embed"]["table"]).to(h.dtype).T)
         else:
-            logits = dense(params["lm_head"], h)
+            logits = dense(params["lm_head"], h, split_out=True)
         # vocab dim TP-sharded: the softmax/xent reduce over "model"
         return shard(logits, "dp", None, "model")
 
-    def logits(self, params, tokens, remat=True):
+    def logits(self, params, tokens, remat=True, valid=None):
         """``remat`` (JAX's knob: True/"nothing", "dots" or False) applies
-        only with gradients on; see :func:`decoder.checkpointed`."""
+        only with gradients on; see :func:`decoder.checkpointed`.
+        ``valid`` (B, S): 0 at the tokens of a padding row (a microbatch
+        padded over the data ranks), which take no MoE capacity."""
         tokens = self._tokens(tokens)
         x = shard(embedding_lookup(params["embed"], tokens), "dp", None, None)
         positions = torch.arange(tokens.shape[1], device=self.device)
         x = decoder.stack_apply(params["blocks"], self.cfg, x, positions,
-                                remat)
+                                remat, valid)
         return self._logits_from_h(params, x)
 
     def loss(self, params, batch, remat=True):
-        logits = self.logits(params, batch["tokens"], remat)
+        logits = self.logits(params, batch["tokens"], remat,
+                             batch.get("valid"))
         loss = _cross_entropy(logits, self._tokens(batch["targets"]),
                               batch.get("mask"))
         return loss, {"loss": loss}

@@ -30,6 +30,7 @@ expert), in the activations' dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -89,10 +90,17 @@ def _weights(p, dtype):
 # ---------------------------------------------------------------------------
 
 
-def _moe_einsum(p, cfg, x2d, group_size: int = 4096):
+def _moe_einsum(p, cfg, x2d, group_size: int = 4096, valid=None):
     """GShard grouped dispatch: tokens split into groups of ``group_size``
     with per-(group, expert) capacity, so the dispatch buffers are
-    (G, E, C, D) — linear in T."""
+    (G, E, C, D) — linear in T.
+
+    ``valid`` (T,): 0 at a padding token (:func:`moe_apply`).  A padding
+    token takes no position in any expert's buffer and is dropped, and a
+    group's capacity is the reference's for its real tokens (each group's
+    count in place of ``Tg``), so real tokens drop as they would in the
+    unpadded microbatch wherever its groups are this one's (one group, or
+    groups of whole rows)."""
     t, d = x2d.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     tg = min(group_size, t)
@@ -109,10 +117,23 @@ def _moe_einsum(p, cfg, x2d, group_size: int = 4096):
 
     # position of each (token, slot) within its (group, expert) buffer
     onehot = F.one_hot(experts, e)                               # (G,Tg,k,E)
-    flat = onehot.reshape(g_n, tg * k, e)
+    if valid is None:
+        flat = onehot.reshape(g_n, tg * k, e)
+    else:
+        real = valid.reshape(-1).long()
+        if pad:
+            real = F.pad(real, (0, pad), value=1)
+        real = real.reshape(g_n, tg)
+        flat = (onehot * real[..., None, None]).reshape(g_n, tg * k, e)
     pos_in_expert = (torch.cumsum(flat, dim=1) - flat).reshape(g_n, tg, k, e)
     pos = (pos_in_expert * onehot).sum(-1)                       # (G,Tg,k)
-    keep = pos < cap                                             # drops
+    if valid is None:
+        keep = pos < cap                                         # drops
+    else:
+        n = real.sum(1).double()
+        cap_g = torch.clamp_min(torch.minimum(
+            n, torch.floor(n * cfg.moe.capacity_factor * k / e)), 1)
+        keep = (pos < cap_g[:, None, None]) & (real[..., None] > 0)
     gates = gates * keep
 
     # dispatch: each kept (token, slot) into its (expert, capacity) bucket;
@@ -252,9 +273,17 @@ def _by_group(fn, *ts):
 
 
 def _moe_scatter(p, cfg, x2d):
-    e, k = cfg.moe.num_experts, cfg.moe.top_k
-    gates, experts, _ = _router(p, x2d, k)
-    wg, wu, wd = _weights(p, x2d.dtype)
+    if is_dtensor(x2d):
+        return _moe_local(p, cfg, x2d, _scatter_dispatch)
+    gates, experts, _ = _router(p, x2d, cfg.moe.top_k)
+    return _scatter_dispatch(x2d, gates, experts, _weights(p, x2d.dtype),
+                             cfg.moe.num_experts)
+
+
+def _scatter_dispatch(x2d, gates, experts, weights, e: int):
+    """Every expert on every routed token: x2d (T, D), gates/experts
+    (T, k), weights (w_gate, w_up, w_down) in the activations' dtype."""
+    wg, wu, wd = weights
     # every (token, expert) partial product, then merge by gate weight
     g = F.silu(torch.einsum("td,edf->tef", x2d, wg))
     u = torch.einsum("td,edf->tef", x2d, wu)
@@ -271,7 +300,8 @@ def _moe_scatter(p, cfg, x2d):
 
 def _moe_sort(p, cfg, x2d, bm: int = SORT_BM):
     if is_dtensor(x2d):
-        return _moe_sort_sharded(p, cfg, x2d, bm)
+        return _moe_local(p, cfg, x2d, functools.partial(_sort_dispatch,
+                                                         bm=bm))
     gates, experts, _ = _router(p, x2d, cfg.moe.top_k)
     return _sort_dispatch(x2d, gates, experts, _weights(p, x2d.dtype),
                           cfg.moe.num_experts, bm)
@@ -320,19 +350,21 @@ def _sort_dispatch(x2d, gates, experts, weights, e: int, bm: int):
     return out
 
 
-def _moe_sort_sharded(p, cfg, x2d, bm: int):
-    """The sort dispatch on DTensors: router, sort, padding, K3 and the
-    combine run on each rank's local tensors (``local_map``).
+def _moe_local(p, cfg, x2d, dispatch):
+    """A dropless dispatch on DTensors, ``dispatch(x, gates, experts,
+    weights, e)`` (:func:`_sort_dispatch`: sort, padding, K3 and the
+    combine; or :func:`_scatter_dispatch`): it and the router run on each
+    rank's local tensors (``local_map``).
 
     Tokens stay where they are on the data axes (tokens-stationary: the
     expert weights are gathered over them, as the reference's
     ``ep_layout="tokens"``).  Where "model" splits d_ff, each rank holds its
-    slice of ``w_gate``/``w_up``/``w_down``, runs K3 on it, and its output
-    is its partial sum over d_ff (``Partial`` over "model").  The router's
-    columns (experts) are then split over "model" too; the top-k needs the
-    whole (T, E) logits, which each rank assembles exactly from its columns
-    padded with zeros and one ``all_reduce`` (adding zeros is exact, and
-    gloo takes ``all_reduce`` on CUDA tensors, where it takes no
+    slice of ``w_gate``/``w_up``/``w_down``, runs the dispatch on it, and its
+    output is its partial sum over d_ff (``Partial`` over "model").  The
+    router's columns (experts) are then split over "model" too; the top-k
+    needs the whole (T, E) logits, which each rank assembles exactly from
+    its columns padded with zeros and one ``all_reduce`` (adding zeros is
+    exact, and gloo takes ``all_reduce`` on CUDA tensors, where it takes no
     ``all_gather``)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
@@ -382,8 +414,8 @@ def _moe_sort_sharded(p, cfg, x2d, bm: int):
                 mesh.get_group("model"))
         gates, experts, _ = _route(logits, k)
         dt = x.dtype
-        return _sort_dispatch(x, gates, experts,
-                              (wg.to(dt), wu.to(dt), wd.to(dt)), e, bm)
+        return dispatch(x, gates, experts, (wg.to(dt), wu.to(dt), wd.to(dt)),
+                        e)
 
     out_pl = tuple(Partial() if i == m_dim and split_f else pl
                    for i, pl in enumerate(x_pl))
@@ -453,10 +485,15 @@ def plan_moe(cfg, tokens: int, *, strategy: Optional[str] = None,
 
 
 def moe_apply(p, cfg, x, *, strategy: Optional[str] = None,
-              plan: Optional[MoEPlan] = None):
+              plan: Optional[MoEPlan] = None, valid=None):
     """x: (B, S, D) -> (B, S, D).
 
     ``plan`` (from :func:`plan_moe`) skips the per-call strategy selection.
+    ``valid`` (B, S): 0 at the tokens of a padding row (a microbatch padded
+    over the data ranks, :func:`repro_torch.train.trainer.loss_and_grads`).
+    Under ``einsum`` they take no capacity from real tokens; ``sort`` and
+    ``scatter`` have no capacity, and a padding token only costs work
+    there (the loss masks its output).
     """
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
@@ -468,7 +505,7 @@ def moe_apply(p, cfg, x, *, strategy: Optional[str] = None,
             strat = select_moe_strategy(b * s, d, cfg.d_ff,
                                         cfg.moe.num_experts, cfg.moe.top_k)
     if strat == "einsum":
-        out = _moe_einsum(p, cfg, x2d)
+        out = _moe_einsum(p, cfg, x2d, valid=valid)
     elif strat == "scatter":
         out = _moe_scatter(p, cfg, x2d)
     elif strat == "sort":

@@ -24,13 +24,16 @@ import contextvars
 
 import torch
 
-from .rules import _placements, _sanitize
+from .rules import _mesh_axis_sizes, _placements, _sanitize
 
 __all__ = ["use_mesh", "current_mesh", "shard", "dp_axes", "is_dtensor",
-           "split_heads", "merge_heads", "grad_placed", "sum_over_ranks"]
+           "split_heads", "merge_heads", "grad_placed", "gather_data",
+           "gathered_params", "params_gathered", "sum_over_ranks"]
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
+_GATHERED: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_gathered", default=False)
 
 
 @contextlib.contextmanager
@@ -45,6 +48,23 @@ def use_mesh(mesh):
             yield mesh
     finally:
         _MESH.reset(token)
+
+
+@contextlib.contextmanager
+def gathered_params():
+    """While active, the params the model sees are gathered over the data
+    axes (:func:`gather_data`), and ``layers.dense`` places each product
+    on its rows' shards as GSPMD does (``layers._dense_placed``)."""
+    token = _GATHERED.set(True)
+    try:
+        yield
+    finally:
+        _GATHERED.reset(token)
+
+
+def params_gathered() -> bool:
+    """Whether :func:`gathered_params` is active."""
+    return _GATHERED.get()
 
 
 def current_mesh():
@@ -91,7 +111,7 @@ def shard(x, *axes):
             spec.append(a if a in names else None)
     mesh = current_mesh()
     placements = _placements(_sanitize(tuple(spec), x.shape, mesh),
-                             list(names))
+                             list(names), _mesh_axis_sizes(mesh))
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(mesh, placements)
@@ -132,6 +152,26 @@ def merge_heads(y):
     over the mesh (GSPMD pads them)."""
     return grad_placed(y.reshape(tuple(y.shape[:-2])
                                  + (y.shape[-2] * y.shape[-1],)))
+
+
+def gather_data(x):
+    """``x`` with its shards over the data axes ("pod", "data") gathered,
+    its other placements kept: the FSDP gather of a parameter before its
+    use, as GSPMD gathers a weight sharded over the data axes to meet
+    activations sharded by batch.  DTensor's own strategy for such a
+    product moves the activations' rows instead, onto every data rank.
+    The gradient comes back reduce-scattered to ``x``'s shards.  A plain
+    tensor, or one with no data shard, is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    names = x.device_mesh.mesh_dim_names or ()
+    placements = tuple(Replicate() if n in ("pod", "data") else p
+                       for n, p in zip(names, x.placements))
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 def grad_placed(x):

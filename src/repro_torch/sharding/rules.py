@@ -56,9 +56,12 @@ def _mesh_axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh_axis_names(mesh), mesh_shape(mesh)))
 
 
-def _placements(spec: Spec, axis_names) -> tuple:
+def _placements(spec: Spec, axis_names, sizes=None) -> tuple:
     """The DTensor placements of ``spec``: for each mesh dim, ``Shard(d)``
-    where tensor dim ``d``'s entry names it, else ``Replicate()``."""
+    where tensor dim ``d``'s entry names it, else ``Replicate()``.  With
+    ``sizes`` (axis name -> ranks), a mesh dim of one rank is
+    ``Replicate()``: it splits nothing, and DTensor will not reshape a dim
+    "sharded" over it (a kv head's dim merged with its repeats)."""
     from torch.distributed.tensor import Replicate, Shard
 
     where: Dict[str, int] = {}
@@ -74,7 +77,8 @@ def _placements(spec: Spec, axis_names) -> tuple:
                 "its mesh dims in mesh order")
         for a in axes:
             where[a] = dim
-    return tuple(Shard(where[a]) if a in where else Replicate()
+    return tuple(Shard(where[a]) if a in where
+                 and (sizes is None or sizes[a] > 1) else Replicate()
                  for a in axis_names)
 
 
@@ -92,7 +96,8 @@ class NamedSharding:
 
     @property
     def placements(self) -> tuple:
-        return _placements(self.spec, list(mesh_axis_names(self.mesh)))
+        return _placements(self.spec, list(mesh_axis_names(self.mesh)),
+                           _mesh_axis_sizes(self.mesh))
 
 
 def _sanitize(spec: Spec, shape, mesh) -> Spec:

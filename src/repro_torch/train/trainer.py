@@ -12,18 +12,19 @@ one waits for the step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..checkpoint.checkpointer import tree_flatten, tree_map, tree_unflatten
-from ..sharding.act import is_dtensor
+from ..sharding.act import gather_data, gathered_params, is_dtensor
 from .compression import compress_decompress, init_error_feedback
 from .optimizer import (AdamWState, adamw_init, adamw_update,
                         clip_by_global_norm, cosine_schedule, decay_mask)
 
 __all__ = ["TrainState", "init_train_state", "loss_and_grads",
-           "make_train_step"]
+           "make_train_step", "microbatch_rows"]
 
 
 class TrainState(NamedTuple):
@@ -56,13 +57,17 @@ def _whole(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if is_dtensor(x) else x
 
 
-def _value_and_grad(model, params, batch, remat):
+def _value_and_grad(model, params, batch, remat, gather=False):
     """(loss, grads): autograd over every leaf of ``params``; a leaf the
-    loss does not reach gets a zero gradient."""
+    loss does not reach gets a zero gradient.  ``gather``: the model sees
+    each DTensor leaf gathered over the data axes (:func:`gather_data`),
+    and its gradient comes back to the leaf's shards."""
     leaves = tree_flatten(params)
     live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
-    with torch.enable_grad():
-        loss, _ = model.loss(tree_unflatten(params, live), batch,
+    placed = gathered_params() if gather else contextlib.nullcontext()
+    with torch.enable_grad(), placed:
+        used = [gather_data(p) for p in live] if gather else live
+        loss, _ = model.loss(tree_unflatten(params, used), batch,
                              remat=remat)
         wrt = [p for p in live if p.requires_grad]
         got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
@@ -73,34 +78,122 @@ def _value_and_grad(model, params, batch, remat):
     return loss.detach(), tree_unflatten(params, grads)
 
 
-def _microbatch(v, i: int, m: int):
-    """Microbatch ``i`` of ``m`` along the leading axis.
+def _data_rank(v) -> Tuple[int, int]:
+    """(this rank's index, the count) among the ranks that split the rows
+    of ``v`` (a DTensor sharded along its leading axis): the mesh dims that
+    shard it, outermost first, as DTensor orders their shards."""
+    from torch.distributed.tensor import Shard
 
-    A DTensor batch sharded along it gives each rank its own rows' ``i``-th
-    chunk (when they divide), so a microbatch stays sharded as the batch
-    is; a slice of the global rows would gather them onto every rank.  The
-    microbatches then hold other rows than the global chunks, and the
+    mesh, coord = v.device_mesh, v.device_mesh.get_coordinate()
+    r, dp = 0, 1
+    for d, pl in enumerate(v.placements):
+        if pl == Shard(0):
+            r, dp = r * mesh.size(d) + coord[d], dp * mesh.size(d)
+    return r, dp
+
+
+def _local_rows(i: int, n: int, dp: int, r: int) -> Tuple[int, int]:
+    """The local rows ``[lo, hi)`` that data rank ``r`` gives microbatch
+    ``i`` of ``n`` rows: local row ``k`` of rank ``r`` is row ``k * dp + r``
+    of a rank-interleaved order, and microbatch ``i`` takes that order's
+    rows ``[i * n, (i + 1) * n)``, at most ``ceil(n / dp)`` a rank."""
+    return -((r - i * n) // dp), -((r - (i + 1) * n) // dp)
+
+
+def microbatch_rows(b: int, m: int, dp: int) -> List[List[int]]:
+    """The global rows of each of the ``m`` microbatches that
+    :func:`loss_and_grads` forms from a batch of ``b`` rows sharded over
+    ``dp`` data ranks, in the order the microbatch holds them (rank by
+    rank).  An unsharded step over ``batch[sum(rows, [])]`` forms the same
+    microbatches (``rows`` this list)."""
+    n, local = b // m, b // dp
+    if local % m == 0:
+        size = local // m
+        return [[r * local + i * size + j for r in range(dp)
+                 for j in range(size)] for i in range(m)]
+    return [[r * local + k for r in range(dp)
+             for k in range(*_local_rows(i, n, dp, r))] for i in range(m)]
+
+
+def _padded_microbatches(batch, m: int, dp: int, r: int):
+    """The ``m`` microbatches of a batch of DTensors whose local rows do
+    not divide into ``m``: each rank builds its part of microbatch ``i``
+    from its own rows (:func:`_local_rows`), padded to ``ceil(b/m/dp)``
+    rows with copies of its first row, with no collective.  A padding row
+    carries ``mask = 0`` (the loss's token mask, made of ones where the
+    batch has none) and ``valid = 0`` (the tokens' own mask: padding takes
+    no MoE capacity), so each microbatch's loss is the mean over its real
+    rows, as GSPMD's padded shards of the reference's microbatch give."""
+    from torch.distributed.tensor import DTensor
+
+    ref = batch["targets"]
+    n = ref.shape[0] // m
+    per_rank = -(-n // dp)
+    local = {k: v.to_local() for k, v in batch.items()}
+    ones = torch.ones(local["targets"].shape, dtype=torch.float32,
+                      device=local["targets"].device)
+    out = []
+    for i in range(m):
+        lo, hi = _local_rows(i, n, dp, r)
+        pad = per_rank - (hi - lo)
+
+        def rows(t, fill=None):
+            extra = (t[:1].expand((pad,) + t.shape[1:]) if fill is None
+                     else t.new_full((pad,) + t.shape[1:], fill))
+            return torch.cat([t[lo:hi], extra])
+
+        mb = {k: rows(t) for k, t in local.items() if k != "mask"}
+        mb["valid"] = rows(ones, 0.0)
+        mb["mask"] = rows(local["mask"], 0) if "mask" in local \
+            else mb["valid"]
+        out.append({k: DTensor.from_local(t, ref.device_mesh,
+                                          ref.placements, run_check=False)
+                    for k, t in mb.items()})
+    return out
+
+
+def _microbatches(batch, m: int):
+    """The batch's ``m`` microbatches along the leading axis.
+
+    A DTensor batch sharded along it stays sharded: with local rows that
+    divide into ``m``, each rank's microbatch ``i`` is its own rows' ``i``-th
+    chunk; otherwise each rank pads its share of a microbatch's rows to
+    the same count (:func:`_padded_microbatches`).  A slice of the global
+    rows would gather them onto every rank.  The microbatches then hold
+    other rows than the global chunks (:func:`microbatch_rows`), and the
     accumulated gradient the same rows in another order."""
-    if is_dtensor(v):
+    ref = batch["targets"]
+    if is_dtensor(ref):
         from torch.distributed.tensor import DTensor, Shard
 
-        local = v.to_local()
-        if any(p == Shard(0) for p in v.placements) \
-                and local.shape[0] % m == 0:
-            size = local.shape[0] // m
-            return DTensor.from_local(local[i * size:(i + 1) * size],
-                                      v.device_mesh, v.placements,
-                                      run_check=False)
-    size = v.shape[0] // m
-    return v[i * size:(i + 1) * size]
+        if any(p == Shard(0) for p in ref.placements):
+            r, dp = _data_rank(ref)
+            if ref.to_local().shape[0] % m:
+                return _padded_microbatches(batch, m, dp, r)
+
+            def chunk(v, i):
+                local = v.to_local()
+                size = local.shape[0] // m
+                return DTensor.from_local(local[i * size:(i + 1) * size],
+                                          v.device_mesh, v.placements,
+                                          run_check=False)
+
+            return [{k: chunk(v, i) for k, v in batch.items()}
+                    for i in range(m)]
+    size = ref.shape[0] // m
+    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            for i in range(m)]
 
 
 def loss_and_grads(model, tcfg, params, batch):
     """The step's loss and gradients.  ``tcfg.microbatches`` splits the
-    batch's leading axis into equal chunks (:func:`_microbatch`) whose
+    batch's leading axis into equal chunks (:func:`_microbatches`) whose
     gradients are summed in fp32 in order and scaled by 1/m, as the
     reference's ``lax.scan`` does; with one microbatch the gradients keep
-    the parameters' dtype."""
+    the parameters' dtype.  A padded microbatch runs on the params
+    gathered over the data axes, its products placed on its rows' shards
+    (``sharding.act.gathered_params``): DTensor's own strategies would
+    move its rows onto every data rank."""
     batch = _on_device(batch, model.device)
     m = tcfg.microbatches
     if m == 1:
@@ -108,9 +201,9 @@ def loss_and_grads(model, tcfg, params, batch):
     g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
     l_sum = 0.0
-    for i in range(m):
-        mb = {k: _microbatch(v, i, m) for k, v in batch.items()}
-        loss, grads = _value_and_grad(model, params, mb, tcfg.remat)
+    for mb in _microbatches(batch, m):
+        loss, grads = _value_and_grad(model, params, mb, tcfg.remat,
+                                      gather="valid" in mb)
         g_sum = tree_map(lambda a, g: a + g.float(), g_sum, grads)
         l_sum = l_sum + loss
     inv = 1.0 / m

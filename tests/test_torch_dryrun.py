@@ -254,3 +254,88 @@ def test_replayed_calls_count_what_running_them_counts(shape, monkeypatch):
         got.append({k: r[k] for k in ("memory", "cost", "flops_by_op",
                                       "collectives")})
     assert got[0] == got[1]
+
+
+def _train_counts(cfg, b, m, s, dp=None, tp=1):
+    """Rank 0's counts of one ``loss_and_grads`` of ``b`` rows of ``s``
+    tokens in ``m`` microbatches, on meta tensors: unsharded, or on a
+    (data ``dp``, model ``tp``) mesh of a fake group."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.sharding import batch_sharding
+    from repro_torch.train.trainer import loss_and_grads
+
+    model = build_model(cfg, device="meta")
+    params = specs.meta_model_init(cfg, lambda mdl: mdl.init(0))
+    batch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+             for k in ("tokens", "targets")}
+    tcfg = TrainConfig(global_batch=b, seq_len=s, microbatches=m)
+    mode = dryrun.CostMode()
+    if dp is None:
+        with mode:
+            loss_and_grads(model, tcfg, params, batch)
+        return mode
+    with dryrun.fake_world(dp * tp):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (dp, tp),
+                                mesh_dim_names=("data", "model"))
+        placed = distribute(params, params_sharding(params, mesh, cfg))
+        dbatch = distribute(batch, batch_sharding(batch, mesh))
+        with use_mesh(mesh), mode:
+            loss_and_grads(model, tcfg, placed, dbatch)
+    return mode
+
+
+@pytest.mark.parametrize("arch", [GRANITE, "smollm-360m"])
+def test_padded_microbatches_count_their_rows(arch):
+    """8 rows of 4096 tokens in 4 microbatches over 4 data ranks: each rank
+    computes one padded row a microbatch, ``ceil(b/m/dp) * m / b`` = 1/2
+    of the unsharded step's products (plus 5%), not the 2 rows of each
+    microbatch that a slice of the global rows puts on every rank.  At
+    4096 tokens a row is one ``einsum`` MoE group (at fewer, one group
+    holds the microbatch, and its dispatch runs whole on every rank)."""
+    cfg = get_config(arch, smoke=True)
+    b, m, dp, s = 8, 4, 4, 4096
+    full = _train_counts(cfg, b, m, s).flops
+    sharded = _train_counts(cfg, b, m, s, dp=dp).flops
+    share = -(-(b // m) // dp) * m / b
+    assert 0 < sharded <= share * full * 1.05, (sharded, full)
+
+
+def test_uneven_vocab_split_counts_its_chunk(monkeypatch):
+    """A padded microbatch's lm_head over a vocab that "model" does not
+    divide (seamless's 256,206 over 16) computes rank 0's chunk of it,
+    ``ceil(V/tp)`` columns, in its forward, ``dx`` and ``dw`` products: the
+    count falls by ``6 * tokens * d * (V - ceil(V/tp))`` against the same
+    step with the vocab whole on every model rank."""
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("granite-34b", smoke=True),
+                              vocab=4099)
+    b, m, dp, tp, s = 2, 2, 2, 4, 256
+    split = _train_counts(cfg, b, m, s, dp=dp, tp=tp).flops
+    placed = layers._dense_placed
+    monkeypatch.setattr(layers, "_dense_placed",
+                        lambda x, w, dt, split_out=False: placed(x, w, dt))
+    whole = _train_counts(cfg, b, m, s, dp=dp, tp=tp).flops
+    tokens = -(-(b // m) // dp) * m * s
+    chunk = -(-cfg.vocab // tp)
+    want = 6 * tokens * cfg.d_model * (cfg.vocab - chunk)
+    assert abs((whole - split) - want) <= 0.01 * want, (whole, split, want)
+
+
+def test_jamba_train_cell_with_padded_microbatches(monkeypatch):
+    """jamba's smoke config on the 256-rank mesh, train_4k's 256 rows (at
+    128 tokens) in 32 microbatches: 16 local rows do not divide into 32,
+    and the cell runs (a microbatch's 8 rows on every rank could not
+    unflatten its mamba tokens sharded over 16 ranks)."""
+    from repro_torch.configs.base import ShapeSpec
+
+    monkeypatch.setattr(specs, "get_config",
+                        lambda a: get_config(a, smoke=True))
+    monkeypatch.setitem(specs.SHAPES, "train_4k",
+                        ShapeSpec("train_4k", 128, 256, "train"))
+    r = dryrun.run_cell("jamba-v0.1-52b", "train_4k", multi_pod=False,
+                        microbatches=32, verbose=False)
+    assert r["status"] == "ok" and r["microbatches"] == 32
+    assert r["cost"]["flops"] > 0

@@ -49,10 +49,11 @@ ARCH = "rwkv6-3b"
 STEPS = 4
 
 
-def exact_dense(p, x, compute_dtype=torch.bfloat16):
+def exact_dense(p, x, compute_dtype=torch.bfloat16, *, split_out=False):
     """``layers.dense`` with its product rounded exactly: the operands in
     ``compute_dtype``, summed in fp64 (exact for bf16 products at these
-    depths, bar the last bits) and rounded once."""
+    depths, bar the last bits) and rounded once.  ``split_out`` is
+    ``dense``'s, which only a sharded product uses."""
     y = torch.matmul(x.to(compute_dtype).double(),
                      p["w"].to(compute_dtype).double()).to(compute_dtype)
     if "b" in p:
