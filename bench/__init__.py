@@ -1,0 +1,2 @@
+"""Benchmark of the PyTorch and CUDA port (``repro_torch``); see
+``run.py``."""
