@@ -51,6 +51,7 @@ tests (and profiles) can assert that execution never re-plans.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 from collections import OrderedDict
@@ -372,10 +373,10 @@ class FlexagonPlan:
 
     def pack_a(self, a) -> SparseOperand:
         """Compress A values into the planned format (reusable across calls)."""
-        return self._ingest(a, self.a_layout)
+        return self._ingest(a, self.a_layout, "a")
 
     def pack_b(self, b) -> SparseOperand:
-        return self._ingest(b, self.b_layout)
+        return self._ingest(b, self.b_layout, "b")
 
     def matches(self, a: OperandSpec, b: OperandSpec) -> bool:
         """Host-side check: do these operands carry the planned pattern?"""
@@ -385,20 +386,34 @@ class FlexagonPlan:
                             self.block_shape) == self.fingerprint
 
     # -- phase 2 ---------------------------------------------------------
-    def _ingest(self, x, layout: CompressionLayout) -> SparseOperand:
+    def _ingest(self, x, layout: CompressionLayout,
+                operand: str) -> SparseOperand:
+        """``x`` in the planned format: as it is where it already is, else
+        gathered through ``layout`` under a ``plan.apply.ingest`` span."""
         if isinstance(x, SparseOperand):
             if x.fmt == layout.fmt and x.block_shape == layout.block_shape \
                     and x.nnzb == layout.nnzb \
                     and _pattern_consistent(x, layout):
                 return x
-            return layout.compress(x.todense())
-        return layout.compress(x)
+            x = x.todense()
+        with obs.span("plan.apply.ingest", operand=operand):
+            return layout.compress(x)
 
     def apply(self, a, b, out_dtype=torch.float32) -> torch.Tensor:
-        """Execute C = A @ B on the planned pattern."""
-        a_c = self._ingest(a, self.a_layout).unwrap()
-        b_c = self._ingest(b, self.b_layout).unwrap()
-        return get_backend(self.backend).execute(self, a_c, b_c, out_dtype)
+        """Execute C = A @ B on the planned pattern.
+
+        While tracing is on the call runs under a ``plan.apply`` span
+        (``dataflow``; ``route``, the backend's name until the backend
+        names what it ran: ``k1``/``k2``/``escape`` on ``cuda``) with
+        ``plan.apply.ingest`` children for the operands it gathers and the
+        backend's own.
+        """
+        with obs.span("plan.apply", dataflow=self.dataflow,
+                      route=self.backend):
+            a_c = self._ingest(a, self.a_layout, "a").unwrap()
+            b_c = self._ingest(b, self.b_layout, "b").unwrap()
+            return get_backend(self.backend).execute(self, a_c, b_c,
+                                                     out_dtype)
 
     __call__ = apply
 
@@ -511,9 +526,14 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
     test suite, off otherwise).
 
     Phase 1 is observable (:mod:`repro_torch.obs`): the build runs under a
-    ``plan.phase1`` span with ``plan.select`` / ``plan.schedule`` /
-    ``plan.tables`` / ``plan.prepare`` children when ``REPRO_TRACE`` is on,
-    and counts into ``plan.builds`` / ``plan.build_s`` / ``policy.select_s``.
+    ``plan.phase1`` span when ``REPRO_TRACE`` is on, with the children
+    ``plan.pattern`` (both operands' block occupancy), ``plan.select`` and,
+    for an untiled, unsharded plan, ``plan.tables`` and ``plan.prepare``;
+    a tiled build lays out and prepares its tiles under ``plan.schedule``
+    instead, a sharded one inside :func:`repro_torch.dist.plan_sharded`.  It
+    counts into ``plan.builds``, ``plan.dataflow.<chosen>`` and the
+    histogram ``plan.build_s``, whose stages are ``plan.pattern_s``,
+    ``policy.select_s``, ``plan.tables_s`` and ``plan.prepare_s``.
     """
     dev = _resolve_plan_device(device, mesh)
     t0 = obs.now_ns()
@@ -529,8 +549,18 @@ def flexagon_plan(a_spec: OperandSpec, b_spec: OperandSpec, *,
                backend=plan.backend)
     reg = obs.get_registry()
     reg.counter("plan.builds").inc()
+    reg.counter(f"plan.dataflow.{plan.dataflow}").inc()
     reg.histogram("plan.build_s").observe((obs.now_ns() - t0) / 1e9)
     return plan
+
+
+@contextlib.contextmanager
+def _stage(span_name: str, histogram: str, **attrs):
+    """A phase-1 stage: a span, and its seconds into ``histogram``."""
+    t0 = obs.now_ns()
+    with obs.span(span_name, **attrs):
+        yield
+    obs.get_registry().histogram(histogram).observe((obs.now_ns() - t0) / 1e9)
 
 
 def _maybe_verify(plan, verify: Optional[bool]) -> None:
@@ -568,8 +598,9 @@ def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
                  tile_dataflows: Optional[Tuple[str, ...]] = None):
     """:func:`flexagon_plan` body (the public wrapper adds the obs seam)."""
     bm, bk, bn = block_shape
-    (m, k), occ_a = _pattern_of(a_spec, (bm, bk))
-    (k2, n), occ_b = _pattern_of(b_spec, (bk, bn))
+    with _stage("plan.pattern", "plan.pattern_s"):
+        (m, k), occ_a = _pattern_of(a_spec, (bm, bk))
+        (k2, n), occ_b = _pattern_of(b_spec, (bk, bn))
     if k != k2:
         raise ValueError(f"inner dims disagree: A is {(m, k)}, B is {(k2, n)}")
 
@@ -602,11 +633,9 @@ def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
                            memory_budget=memory_budget, mesh=mesh,
                            partition=partition, device=device)
     if not mixed:
-        t_sel = obs.now_ns()
-        with obs.span("plan.select", policy=type(policy_obj).__name__):
+        with _stage("plan.select", "policy.select_s",
+                    policy=type(policy_obj).__name__):
             dataflow = policy_obj.select(ctx)
-        obs.get_registry().histogram("policy.select_s").observe(
-            (obs.now_ns() - t_sel) / 1e9)
 
     if mesh is not None or partition is not None:
         from .dist.sharded_plan import plan_sharded   # lazy: dist uses api
@@ -648,7 +677,7 @@ def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
                 fingerprint=fingerprint, device=device)[0]
 
     fmt_a, fmt_b = _TABLE3_FORMATS[dataflow]
-    with obs.span("plan.tables", dataflow=dataflow):
+    with _stage("plan.tables", "plan.tables_s", dataflow=dataflow):
         a_layout = CompressionLayout.from_bitmap(occ_a, (m, k), (bm, bk),
                                                  fmt_a, device)
         b_layout = CompressionLayout.from_bitmap(occ_b, (k, n), (bk, bn),
@@ -669,7 +698,7 @@ def _plan_phase1(a_spec: OperandSpec, b_spec: OperandSpec, *, dataflow: str,
         device=device,
     )
     # "configure the hardware": backend-specific pattern-only schedules
-    with obs.span("plan.prepare", backend=backend_obj.name):
+    with _stage("plan.prepare", "plan.prepare_s", backend=backend_obj.name):
         return dataclasses.replace(plan, aux=backend_obj.prepare(plan))
 
 

@@ -18,6 +18,13 @@ The counterpart of the JAX package's ``pallas`` backend:
   schedules that phase 1 built for the transposed problem;
 - :meth:`CudaBackend.uniform_aux` pads sibling schedules to shared extents.
 
+While tracing is on (:mod:`repro_torch.obs`) an execute names its route on
+the caller's ``plan.apply`` span (``k1``, ``k2`` or ``escape``) and runs its
+phases under ``plan.apply.dispatch`` (:meth:`CudaBackend.kernel_call`: the
+fp32 copies and the N-stationary transposes) and ``plan.apply.launch`` (the
+kernel's host checks, zeroed output, launch and cast), or, on the escape,
+``plan.apply.escape.densify`` and ``plan.apply.escape.gemm``.
+
 The kernels take any block size, so no block-alignment rule applies.
 """
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from .. import obs
 from ..core import dataflows as df
 from ..kernels.stream import (DeviceSchedule, device_schedule, pad_schedule,
                               schedule_from_ip, schedule_from_stream,
@@ -166,9 +174,11 @@ class CudaBackend(ExecutionBackend):
 
     def _execute_dense(self, plan, a, b, out_dtype) -> torch.Tensor:
         m, _, n = plan.shapes
-        a_d = self._densify(a, plan.a_layout).float()
-        b_d = self._densify(b, plan.b_layout).float()
-        return torch.matmul(a_d, b_d)[:m, :n].to(out_dtype)
+        with obs.span("plan.apply.escape.densify"):
+            a_d = self._densify(a, plan.a_layout).float()
+            b_d = self._densify(b, plan.b_layout).float()
+        with obs.span("plan.apply.escape.gemm"):
+            return torch.matmul(a_d, b_d)[:m, :n].to(out_dtype)
 
     def kernel_call(self, plan, a, b) -> KernelCall:
         """The kernel, operands and schedule :meth:`execute` launches for a
@@ -190,7 +200,11 @@ class CudaBackend(ExecutionBackend):
     def execute(self, plan, a, b, out_dtype) -> torch.Tensor:
         if "dense" in plan.aux:
             # occupancy escape hatch: orientation-independent dense product
+            obs.annotate(route="escape")
             return self._execute_dense(plan, a, b, out_dtype)
-        call = self.kernel_call(plan, a, b)
-        out = call.run(out_dtype=out_dtype)
+        with obs.span("plan.apply.dispatch"):
+            call = self.kernel_call(plan, a, b)
+        obs.annotate(route="k2" if call.kernel is stream_panel_spmm else "k1")
+        with obs.span("plan.apply.launch"):
+            out = call.run(out_dtype=out_dtype)
         return out.T if call.transposed else out

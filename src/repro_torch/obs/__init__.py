@@ -9,9 +9,9 @@ Two halves, one import:
   counters / gauges / histograms replacing the per-subsystem stats dicts.
   On unless ``REPRO_METRICS=0``.
 
-This package imports only the stdlib (torch is touched lazily, for optional
-profiler annotations), so any repro_torch module can depend on it without
-cycles.
+This package imports only the stdlib, so any repro_torch module can depend
+on it without cycles.  Spans export onto ``torch.profiler``'s clock
+(``spans_to_chrome(spans, base_ns=...)``), so they merge into its traces.
 """
 from repro_torch.obs.metrics import (
     Counter,
@@ -25,6 +25,8 @@ from repro_torch.obs.metrics import (
 from repro_torch.obs.trace import (
     SpanRecord,
     Tracer,
+    annotate,
+    clock_pair,
     enable,
     enabled,
     disable,
@@ -44,6 +46,8 @@ __all__ = [
     "MetricsRegistry",
     "SpanRecord",
     "Tracer",
+    "annotate",
+    "clock_pair",
     "default_buckets",
     "disable",
     "enable",

@@ -5,17 +5,20 @@ Every subsystem that used to grow its own ad-hoc stats dict (`ServeEngine`,
 in a :class:`MetricsRegistry`.  Names are dotted and namespaced by
 subsystem:
 
-==============  =============================================================
-namespace       examples
-==============  =============================================================
-``plan.*``      ``plan.builds``, ``plan.build_s`` (histogram)
-``cache.*``     ``cache.hits``, ``cache.misses``, ``cache.evictions``
-``policy.*``    ``policy.select_s``, ``policy.select_tile_s``,
-                ``policy.measurements``, ``policy.learned_fallbacks``
-``serve.*``     ``serve.prefills``, ``serve.latency.decode_step_s``
-``dist.*``      ``dist.ici_bytes``, ``dist.collectives``
-``tier.*``      ``tier.l1_bytes``, ``tier.l2_bytes``, ``tier.dram_bytes``
-==============  =============================================================
+====================  =======================================================
+namespace             examples
+====================  =======================================================
+``plan.*``            ``plan.builds``, ``plan.build_s`` and its stages
+                      ``plan.pattern_s``, ``plan.tables_s``, ``plan.prepare_s``
+                      (histograms; ``policy.select_s`` is the fourth)
+``plan.dataflow.*``   ``plan.dataflow.ip_m``, ... (plans built, by dataflow)
+``cache.*``           ``cache.hits``, ``cache.misses``, ``cache.evictions``
+``policy.*``          ``policy.select_s``, ``policy.select_tile_s``,
+                      ``policy.measurements``, ``policy.learned_fallbacks``
+``serve.*``           ``serve.prefills``, ``serve.latency.decode_step_s``
+``dist.*``            ``dist.ici_bytes``, ``dist.collectives``
+``tier.*``            ``tier.l1_bytes``, ``tier.l2_bytes``, ``tier.dram_bytes``
+====================  =======================================================
 
 Instruments are created on first touch (``registry.counter(name).inc()``)
 and are thread-safe.  ``REPRO_METRICS=0`` turns every instrument into a

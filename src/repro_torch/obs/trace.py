@@ -4,14 +4,15 @@ One process-global :class:`Tracer` holds a thread-safe ring buffer of
 completed spans.  Instrumentation sites call :func:`span` (a context
 manager) or decorate with :func:`traced`; spans nest through a per-thread
 stack, so exports reconstruct the call tree without any global ordering
-assumptions.  Clocks are monotonic (``time.perf_counter_ns``) — wall-clock
-drift cannot reorder a trace.
+assumptions, and code below a span can attach attributes to it
+(:func:`annotate`).  Clocks are monotonic (``time.perf_counter_ns``) —
+wall-clock drift cannot reorder a trace.
 
-The whole layer is **off by default**: unless ``REPRO_TRACE`` is truthy (or
-:func:`enable` was called), :func:`span` returns a shared no-op context
-manager — no record, no ring-buffer write, no retained allocation — so
-instrumented hot paths (``plan.apply``, the serve decode loop) cost a
-dictionary lookup when nobody is watching.
+The whole layer is **off by default**: unless ``REPRO_TRACE`` is truthy (read
+once per process) or :func:`enable` was called, :func:`span` returns a
+shared no-op context manager — no record, no ring-buffer write, no retained
+allocation — so instrumented hot paths (``plan.apply``, the serve decode
+loop) cost a global read when nobody is watching.
 
 Exports:
 
@@ -23,9 +24,15 @@ Exports:
 - :func:`summarize` — a human per-span-name latency table (count, total,
   mean, p50, p99, max).
 
-``REPRO_TRACE_DEVICE=1`` additionally wraps every span in a
-``torch.profiler.record_function`` so spans show up on the profiler's
-timeline when a ``torch.profiler`` session is recording (a no-op otherwise).
+Spans join a ``torch.profiler`` trace on its own clock: :func:`enable`
+samples one (Unix ns, ``perf_counter_ns``) pair (:func:`clock_pair`), and
+``spans_to_chrome(spans, base_ns=...)`` writes each span's ``ts`` as Unix
+time less ``base_ns`` — the profiler trace's ``baseTimeNanoseconds`` — so
+the program's spans merge into any Chrome trace the profiler exports.
+Spans carry the thread's native id (``threading.get_native_id()``), the
+``tid`` of the profiler's host rows where it records the host; a trace of
+the device alone writes its launch rows' thread in an encoding of its own,
+so a reader matches spans there by time on the launching thread.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "SpanRecord",
@@ -46,7 +53,9 @@ __all__ = [
     "enabled",
     "enable",
     "disable",
+    "annotate",
     "now_ns",
+    "clock_pair",
     "summarize",
     "read_spans",
 ]
@@ -57,27 +66,33 @@ now_ns = time.perf_counter_ns
 
 _TRUE = frozenset(("1", "true", "yes", "on"))
 
-#: explicit override from :func:`enable` / :func:`disable`; ``None`` defers
-#: to the ``REPRO_TRACE`` environment variable (read per call, so tests and
-#: launchers can flip it without reloading modules)
-_OVERRIDE: Optional[bool] = None
+#: is span capture on?  Set by :func:`enable` / :func:`disable` (which win
+#: over ``REPRO_TRACE``); ``None`` until ``REPRO_TRACE`` is read.  Read
+#: once: the lookup costs microseconds, and the check sits on hot paths
+#: (``FlexagonPlan.apply``); :func:`_reset_override` reads it anew
+_ON: Optional[bool] = None
 
 
 def enabled() -> bool:
     """Is span capture on?  (``REPRO_TRACE`` truthy, or :func:`enable`.)"""
-    ov = _OVERRIDE
-    if ov is not None:
-        return ov
+    on = _ON
+    return _read_env() if on is None else on
+
+
+def _read_env() -> bool:
+    global _ON
     raw = os.environ.get("REPRO_TRACE")
-    if raw is None:
-        return False
-    return raw.strip().lower() in _TRUE
+    _ON = raw is not None and raw.strip().lower() in _TRUE
+    return _ON
 
 
 def enable(flag: bool = True) -> None:
-    """Force tracing on/off for this process (wins over ``REPRO_TRACE``)."""
-    global _OVERRIDE
-    _OVERRIDE = bool(flag)
+    """Force tracing on/off for this process (wins over ``REPRO_TRACE``);
+    turning it on samples the clock pair anew (:func:`clock_pair`)."""
+    global _ON, _CLOCK_PAIR
+    _ON = bool(flag)
+    if flag:
+        _CLOCK_PAIR = _sample_clock_pair()
 
 
 def disable() -> None:
@@ -85,15 +100,33 @@ def disable() -> None:
 
 
 def _reset_override() -> None:
-    """Return to environment-driven behaviour (test hygiene)."""
-    global _OVERRIDE
-    _OVERRIDE = None
+    """Return to environment-driven behaviour, ``REPRO_TRACE`` read anew
+    (test hygiene)."""
+    global _ON
+    _ON = None
 
 
-def device_annotations_enabled() -> bool:
-    """``REPRO_TRACE_DEVICE`` — mirror spans onto the torch profiler timeline."""
-    raw = os.environ.get("REPRO_TRACE_DEVICE")
-    return raw is not None and raw.strip().lower() in _TRUE
+def _sample_clock_pair() -> Tuple[int, int]:
+    """(Unix ns, ``now_ns()``) read together: the Unix reading between two
+    monotonic ones, paired with their midpoint."""
+    before = now_ns()
+    unix = time.time_ns()
+    return unix, (before + now_ns()) // 2
+
+
+#: the (Unix ns, monotonic ns) pair spans are mapped onto Unix time by;
+#: sampled by :func:`enable`, or on first use where ``REPRO_TRACE`` did it
+_CLOCK_PAIR: Optional[Tuple[int, int]] = None
+
+
+def clock_pair() -> Tuple[int, int]:
+    """The (Unix ns, ``now_ns()``) pair of this tracing session: a span
+    that starts at ``t0_ns`` started at Unix ``t0_ns - pair[1] + pair[0]``,
+    the clock ``torch.profiler`` stamps its trace with."""
+    global _CLOCK_PAIR
+    if _CLOCK_PAIR is None:
+        _CLOCK_PAIR = _sample_clock_pair()
+    return _CLOCK_PAIR
 
 
 class SpanRecord:
@@ -161,17 +194,25 @@ class Tracer:
         """A fresh span id (manual span assembly, e.g. serve requests)."""
         return next(self._ids)
 
-    def _stack(self) -> List[int]:
+    def _stack(self) -> List["_Span"]:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = []
             self._local.stack = stack
         return stack
 
+    def _thread_id(self) -> int:
+        """This thread's native id, read once per thread (a system call,
+        which can cost microseconds)."""
+        tid = getattr(self._local, "tid", None)
+        if tid is None:
+            tid = self._local.tid = threading.get_native_id()
+        return tid
+
     def current_span(self) -> Optional[int]:
         """sid of the innermost open span on this thread, if any."""
         stack = self._stack()
-        return stack[-1] if stack else None
+        return stack[-1].sid if stack else None
 
     def record(self, name: str, t0_ns: int, dur_ns: int, *,
                sid: Optional[int] = None, parent: Optional[int] = None,
@@ -179,7 +220,7 @@ class Tracer:
                attrs: Optional[Dict[str, Any]] = None) -> SpanRecord:
         """Append one completed span (manual API; ``span()`` calls this)."""
         rec = SpanRecord(name, int(t0_ns), int(dur_ns),
-                         tid if tid is not None else threading.get_ident(),
+                         tid if tid is not None else self._thread_id(),
                          sid if sid is not None else self.new_id(),
                          parent, attrs)
         with self._lock:
@@ -207,10 +248,12 @@ class Tracer:
             self.recorded = 0
 
     # -- exporters -------------------------------------------------------
-    def to_chrome(self, spans: Optional[Iterable[SpanRecord]] = None
-                  ) -> Dict[str, Any]:
-        """Chrome-trace / Perfetto JSON (complete ``ph: "X"`` events)."""
-        return spans_to_chrome(self.spans() if spans is None else spans)
+    def to_chrome(self, spans: Optional[Iterable[SpanRecord]] = None,
+                  base_ns: Optional[int] = None) -> Dict[str, Any]:
+        """Chrome-trace / Perfetto JSON (complete ``ph: "X"`` events); see
+        :func:`spans_to_chrome` for ``base_ns``."""
+        return spans_to_chrome(self.spans() if spans is None else spans,
+                               base_ns=base_ns)
 
     def save(self, path: str) -> int:
         """Native capture format: one span per line, JSON.  Returns count."""
@@ -246,7 +289,7 @@ class _NoopSpan:
     def __enter__(self) -> "_NoopSpan":
         return self
 
-    def __exit__(self, *exc) -> bool:
+    def __exit__(self, exc_type, exc, tb) -> bool:
         return False
 
     def set(self, **attrs: Any) -> None:
@@ -259,12 +302,11 @@ _NOOP = _NoopSpan()
 class _Span:
     """Live span context manager (only built when tracing is enabled)."""
 
-    __slots__ = ("name", "attrs", "t0", "sid", "parent", "_ann")
+    __slots__ = ("name", "attrs", "t0", "sid", "parent")
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
         self.attrs = attrs
-        self._ann = None
 
     def set(self, **attrs: Any) -> None:
         """Attach attributes mid-span (e.g. a result computed inside)."""
@@ -273,39 +315,27 @@ class _Span:
     def __enter__(self) -> "_Span":
         tr = _TRACER
         stack = tr._stack()
-        self.parent = stack[-1] if stack else None
+        self.parent = stack[-1].sid if stack else None
         self.sid = tr.new_id()
-        stack.append(self.sid)
-        if device_annotations_enabled():
-            self._ann = _device_annotation(self.name)
-            if self._ann is not None:
-                self._ann.__enter__()
+        stack.append(self)
         self.t0 = now_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur = now_ns() - self.t0
-        if self._ann is not None:
-            self._ann.__exit__(exc_type, exc, tb)
         tr = _TRACER
         stack = tr._stack()
-        # exception-safe unwind: pop our sid even if inner code corrupted
+        # exception-safe unwind: pop our span even if inner code corrupted
         # the stack (never raise from __exit__)
-        if stack and stack[-1] == self.sid:
+        if stack and stack[-1] is self:
             stack.pop()
-        elif self.sid in stack:
-            del stack[stack.index(self.sid):]
+        elif self in stack:
+            del stack[stack.index(self):]
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
         tr.record(self.name, self.t0, dur, sid=self.sid,
                   parent=self.parent, attrs=self.attrs)
         return False
-
-
-def _device_annotation(name: str):
-    from torch.profiler import record_function  # lazy: obs is stdlib-only
-
-    return record_function(name)
 
 
 def span(name: str, **attrs: Any):
@@ -314,9 +344,22 @@ def span(name: str, **attrs: Any):
     Returns the shared no-op when tracing is disabled, so call sites never
     branch themselves.
     """
-    if not enabled():
+    on = _ON        # enabled(), inlined: this is the off path's whole cost
+    if not (on if on is not None else _read_env()):
         return _NOOP
     return _Span(name, attrs)
+
+
+def annotate(**attrs: Any) -> None:
+    """Attach ``attrs`` to the innermost span open on this thread: a
+    decision taken below the code that opened it (``plan.apply``'s
+    ``route``, set by the backend).  A no-op with tracing off or no span
+    open."""
+    if not _ON:     # no span is open before REPRO_TRACE was read
+        return
+    stack = _TRACER._stack()
+    if stack:
+        stack[-1].attrs.update(attrs)
 
 
 def traced(name: Optional[str] = None, **attrs: Any):
@@ -343,9 +386,20 @@ def traced(name: Optional[str] = None, **attrs: Any):
 # ---------------------------------------------------------------------------
 
 
-def spans_to_chrome(spans: Iterable[SpanRecord]) -> Dict[str, Any]:
-    """Chrome-trace JSON object: every span becomes one complete event."""
+def spans_to_chrome(spans: Iterable[SpanRecord],
+                    base_ns: Optional[int] = None) -> Dict[str, Any]:
+    """Chrome-trace JSON object: every span becomes one complete event.
+
+    ``ts`` is the monotonic clock in microseconds; with ``base_ns`` it is
+    Unix time less ``base_ns`` (a ``torch.profiler`` trace's
+    ``baseTimeNanoseconds``), the axis of that trace, through
+    :func:`clock_pair`.
+    """
     pid = os.getpid()
+    shift = 0
+    if base_ns is not None:
+        unix, mono = clock_pair()
+        shift = unix - mono - int(base_ns)
     events = []
     for rec in spans:
         args = dict(_json_safe(rec.attrs))
@@ -356,7 +410,7 @@ def spans_to_chrome(spans: Iterable[SpanRecord]) -> Dict[str, Any]:
             "name": rec.name,
             "cat": rec.name.split(".", 1)[0],
             "ph": "X",
-            "ts": rec.t0_ns / 1e3,        # microseconds
+            "ts": (rec.t0_ns + shift) / 1e3,        # microseconds
             "dur": rec.dur_ns / 1e3,
             "pid": pid,
             "tid": rec.tid,
