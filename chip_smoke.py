@@ -12,7 +12,10 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    source, all at once) and print the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at blocks
    16, 32, 64 and 128 with ragged edges, a ``pad_schedule``-padded schedule
-   and an empty one; then K1 on long runs and K2 on long columns (4 valid
+   and an empty one, each also with B read in place (the dense operand
+   through its block coordinates; contiguous, and in a view one float off
+   16 bytes with rows wider than N, the 4-byte copies) bit for bit equal to
+   the stack launch; then K1 on long runs and K2 on long columns (4 valid
    rows, block 128, ~36 entries a run or a column), with their chunk
    tables split and whole;
 3. the main path: all nine Table 6 layers at their published M, N, K and
@@ -31,7 +34,13 @@ Phases (any failure exits non-zero; nothing is caught on the way out):
    ``CudaBackend.kernel_call`` makes it and held bit for bit to the main
    path's own result: checked against its plain version on the same
    inputs, and timed beside the plain version, one ``torch.matmul`` on
-   the densified inputs, and the least time the card could take;
+   the densified inputs, and the least time the card could take; then
+   (6b) each M-stationary launch of phase 3 again with B read in place,
+   contiguous and in an unaligned wider view, bit for bit equal to the
+   stack launch, and an R0-shaped product (ResNet-50's conv1 as im2col,
+   M 64, K 147, 16 images, block 32, ``ip_m`` and ``gust_m``) through
+   ``plan.apply``: the in-place route bit for bit equal to the gathered
+   one, within ``REL_TOL`` of fp64, both applies and both launches timed;
 7. K3 (the MoE grouped matmul) against its plain version and an fp64
    product: bm 16, 64 and 128, bf16 and fp32 inputs, empty groups, groups
    larger than one tile, and the idle tiles of the device padding; then
@@ -281,6 +290,12 @@ result.
 runs phases 1, 7 and 2 alone (the build, then each kernel against its
 plain version: K3 first, then K1 and K2) and prints no result lines.
 
+    python3 chip_smoke.py --stream
+
+runs phases 1, 2, 3, 4, 6 and 6b alone (the build, the K1/K2 sweeps,
+Table 6 and the FFN through the main path, the replayed launches timed,
+and the in-place gate) and prints no result lines.
+
     python3 chip_smoke.py --serve
 
 runs phases 1 and 8 alone (the build, then granite serving with its
@@ -451,6 +466,19 @@ def _operands(rng, m, k, n, block, da, db, device):
             torch.as_tensor(b, device=device))
 
 
+def _wide_view(t):
+    """``t``'s values in a view one float past a 16-byte boundary whose
+    rows are 3 floats wider than ``t``'s: a B the kernels read in place
+    with 4-byte copies and a row stride other than N."""
+    import torch
+
+    buf = torch.empty((t.shape[0], t.shape[1] + 3), dtype=t.dtype,
+                      device=t.device)
+    view = buf[:, 1:t.shape[1] + 1]
+    view.copy_(t)
+    return view
+
+
 def kernel_sweep(device, blocks=(16, 32, 64, 128)):
     """Each kernel vs its plain version at several blocks, padded, empty."""
     import numpy as np
@@ -491,6 +519,15 @@ def kernel_sweep(device, blocks=(16, 32, 64, 128)):
                 kw = dict(out_grid=(mb, nb), out_shape=(m, n))
                 got = kernel(x.data, y.data, ds, **kw)
                 want = plain(x.data, y.data, ds, **kw)
+                coords = ks.block_coords(*_block_coords(y), y.shape,
+                                         y.block_shape, device)
+                for form, dense in (("in place", b),
+                                    ("in place 4-byte", _wide_view(b))):
+                    if not torch.equal(kernel(x.data, dense, ds,
+                                              b_coords=coords, **kw), got):
+                        raise SystemExit(f"{name} at block {blk} ({tag}): "
+                                         f"B read {form} differs from the "
+                                         "stack launch")
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max()) if got.numel() else 0.
                 rel = err / max(float(want.abs().max()), 1e-30) \
@@ -503,7 +540,8 @@ def kernel_sweep(device, blocks=(16, 32, 64, 128)):
                 log(f"sweep {name:17s} block={blk:3d} {label:4s} {tag:6s} "
                     f"W={s.n_work:5d} max|kernel-plain|={err:.3e} "
                     f"(/max|plain| {rel:.1e}) allclose rtol=atol={TOL:g} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{'ok' if ok else 'FAIL'}; B in place (16- and 4-byte "
+                    "copies) bit-equal")
                 if not ok:
                     raise SystemExit(f"{name} disagrees with its plain "
                                      f"version at block {blk} ({tag})")
@@ -915,6 +953,77 @@ def time_main_path(calls, worst):
     log(f"main-path timings on CUDA events (with the host's gaps): "
         f"{sum(fallbacks)} of {len(fallbacks)}")
     return totals, per_call
+
+
+#: ResNet-50's conv1 as an im2col product (the benchmark's R0): M, K, the
+#: columns of one image, the sparsities of A and B (%)
+R0 = (64, 147, 11881, 86.678086, 49.316827)
+
+
+def in_place_gate(device, calls, images=16):
+    """Phase 6b: every M-stationary launch of phase 3 with B read in place
+    (contiguous, and in an unaligned wider view) bit for bit equal to the
+    stack launch; then an R0-shaped product through ``plan.apply`` on both
+    routes, timed.  Returns its rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch import flexagon_plan, get_backend
+
+    cuda = get_backend("cuda")
+    checked = 0
+    for label, plan, a, b, _ in calls:
+        if (label.startswith("ffn") or plan.dataflow.endswith("_n")
+                or "dense" in plan.aux):
+            continue
+        a_p = plan.pack_a(a).unwrap()
+        stack = cuda.kernel_call(plan, a_p, plan.pack_b(b).unwrap()).run()
+        for form, dense in (("in place", b), ("in place 4-byte",
+                                              _wide_view(b))):
+            call = cuda.kernel_call(plan, a_p, dense)
+            if call.b_coords is None or not torch.equal(call.run(), stack):
+                raise SystemExit(f"in place {label}/{plan.dataflow}: B read "
+                                 f"{form} differs from the stack launch")
+        checked += 1
+    log(f"in place: {checked} M-stationary Table 6 launches, B read in place "
+        "(contiguous and an unaligned wider view) bit-equal to the stack "
+        "launch")
+    m, k, n1, sp_a, sp_b = R0
+    rng = np.random.default_rng(SEED + 2)
+    a, b = _operands(rng, m, k, n1 * images, (32, 32, 32), 1 - sp_a / 100,
+                     1 - sp_b / 100, device)
+    ref = a.double() @ b.double()
+    rows = []
+    with EscapeOff():
+        for d in ("ip_m", "gust_m"):
+            plan = flexagon_plan(a, b, dataflow=d, block_shape=(32, 32, 32),
+                                 backend="cuda")
+            a_p = plan.pack_a(a)
+            in_place = plan.apply(a_p, b)
+            gathered = plan.apply(a_p, plan.pack_b(b))
+            err = _rel_err(in_place, ref)
+            if not torch.equal(in_place, gathered) or err > REL_TOL:
+                raise SystemExit(f"in place R0/{d}: differs from the "
+                                 f"gathered route or from fp64 ({err:.2e})")
+            b_p = plan.pack_b(b).unwrap()
+            stack_call = cuda.kernel_call(plan, a_p.unwrap(), b_p)
+            place_call = cuda.kernel_call(plan, a_p.unwrap(), b)
+            row = {"dataflow": d, "m": m, "k": k, "n": n1 * images,
+                   "rel_err": err,
+                   "apply_in_place_ms": _device_ms(
+                       lambda: plan.apply(a_p, b))[0],
+                   "apply_gather_ms": _device_ms(
+                       lambda: plan.apply(a_p, plan.pack_b(b)))[0],
+                   "kernel_in_place_ms": _device_ms(place_call.run)[0],
+                   "kernel_stack_ms": _device_ms(stack_call.run)[0]}
+            log(f"in place R0 {d} M={m} K={k} N={n1 * images}: bit-equal "
+                f"to the gathered route, rel err {err:.2e}; apply ms in "
+                f"place {row['apply_in_place_ms']:.4f} / gathered "
+                f"{row['apply_gather_ms']:.4f}; kernel ms in place "
+                f"{row['kernel_in_place_ms']:.4f} / stack "
+                f"{row['kernel_stack_ms']:.4f}")
+            rows.append(row)
+    return rows
 
 
 # -- phases 10-12 ------------------------------------------------------------
@@ -4689,6 +4798,23 @@ def main() -> int:
         log(f"sweeps done in {time.perf_counter() - t_start:.1f} s on "
             f"{card}")
         return 0
+    if "--stream" in sys.argv[1:]:
+        # phases 1-4, 6 and 6b: K1/K2 on the main path, timed, and read
+        # in place
+        kernel_sweep(device)
+        calls = []
+        table6(device, calls)
+        replay_ffn(qwen2_ffn(device), calls)
+        totals, _ = time_main_path(calls, {"stream_spmm": 0.0,
+                                           "stream_panel_spmm": 0.0})
+        log(f"stream: replayed launches ms {json.dumps(totals)}")
+        in_place = in_place_gate(device, calls)
+        (OUT_DIR / "chip_smoke_stream.json").write_text(json.dumps(
+            {"card": card, "totals": totals, "in_place": in_place},
+            indent=1))
+        log(f"stream done in {time.perf_counter() - t_start:.1f} s on "
+            f"{card}")
+        return 0
     if "--serve" in sys.argv[1:]:
         # phases 1 and 8 alone: the decode step's host-clock latency
         serve_granite(device)
@@ -4764,6 +4890,7 @@ def main() -> int:
         f"fp32 operations at {FP32_FLOP_PER_S:g}/s), bound_by = the side "
         "that sets most of it; library = torch.matmul on the densified "
         "inputs")
+    in_place = in_place_gate(device, calls)
     log(f"phases 1-6 done at {time.perf_counter() - t_start:.1f} s")
 
     worst["moe_gmm"] = gmm_sweep(device)
@@ -4855,7 +4982,8 @@ def main() -> int:
         "refuses the operands)")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "tiled": tiled, "policy": policy,
+        {"card": card, "kernels": kernels, "in_place": in_place,
+         "tiled": tiled, "policy": policy,
          "pipeline": pipeline, "dist": dist, "analysis": analysis,
          "tune": tune, "models": models, "train": train, "shard": shard,
          "launch": launch},

@@ -68,7 +68,7 @@ from .backends.policies import SelectionContext, SelectionPolicy, get_policy
 from .config import resolve_device, resolve_verify
 from .core import dataflows as df
 from .core.formats import (
-    CSC, CSR, BlockCSC, BlockCSR, SparseFormat, block_occupancy,
+    CSC, CSR, BlockCSC, BlockCSR, SparseFormat, block_occupancy, blockize,
     dense_to_bcsc, dense_to_bcsr, to_host,
 )
 from .core.selector import (
@@ -201,16 +201,6 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _blockize(x: torch.Tensor, block_shape: Tuple[int, int]) -> torch.Tensor:
-    """(M, K) -> (Mb, Kb, bm, bk), zero-padded to whole blocks."""
-    m, k = x.shape
-    bm, bk = block_shape
-    pm, pk = _ceil_div(m, bm) * bm, _ceil_div(k, bk) * bk
-    if (pm, pk) != (m, k):
-        x = torch.nn.functional.pad(x, (0, pk - k, 0, pm - m))
-    return x.reshape(pm // bm, bm, pk // bk, bk).transpose(1, 2)
-
-
 @dataclasses.dataclass
 class CompressionLayout:
     """Frozen block coordinate structure of one operand (phase-1 output).
@@ -267,7 +257,7 @@ class CompressionLayout:
         if tuple(x.shape) != tuple(self.shape):
             raise ValueError(f"operand shape {tuple(x.shape)} != planned "
                              f"{self.shape}")
-        data = _blockize(x, self.block_shape)[self.rows_t, self.cols_t]
+        data = blockize(x, self.block_shape)[self.rows_t, self.cols_t]
         return SparseOperand(data, self.indptr, self.indices, self.shape,
                              self.block_shape, self.fmt)
 
@@ -402,18 +392,29 @@ class FlexagonPlan:
     def apply(self, a, b, out_dtype=torch.float32) -> torch.Tensor:
         """Execute C = A @ B on the planned pattern.
 
+        A dense B that the backend reads in place
+        (:meth:`repro_torch.backends.ExecutionBackend.reads_b_in_place`: on
+        ``cuda``, an fp32 B of an M-stationary kernel plan) goes to it as it
+        is; every other B is ingested into the planned format.
+
         While tracing is on the call runs under a ``plan.apply`` span
         (``dataflow``; ``route``, the backend's name until the backend
-        names what it ran: ``k1``/``k2``/``escape`` on ``cuda``) with
+        names what it ran: ``k1``/``k2``/``escape`` on ``cuda``; ``b_ingest``,
+        ``in_place`` or ``gather``: B handed over dense, or as blocks) with
         ``plan.apply.ingest`` children for the operands it gathers and the
         backend's own.
         """
         with obs.span("plan.apply", dataflow=self.dataflow,
                       route=self.backend):
+            backend = get_backend(self.backend)
             a_c = self._ingest(a, self.a_layout, "a").unwrap()
-            b_c = self._ingest(b, self.b_layout, "b").unwrap()
-            return get_backend(self.backend).execute(self, a_c, b_c,
-                                                     out_dtype)
+            if backend.reads_b_in_place(self, b):
+                obs.annotate(b_ingest="in_place")
+                b_c = b
+            else:
+                obs.annotate(b_ingest="gather")
+                b_c = self._ingest(b, self.b_layout, "b").unwrap()
+            return backend.execute(self, a_c, b_c, out_dtype)
 
     __call__ = apply
 

@@ -142,10 +142,17 @@ class ExecutionBackend(abc.ABC):
         """
         return {}
 
+    def reads_b_in_place(self, plan, b) -> bool:
+        """Does :meth:`execute` take this dense ``b`` as it is, with no
+        gather into the planned format?  Default: no backend does."""
+        del plan, b
+        return False
+
     @abc.abstractmethod
     def execute(self, plan, a, b, out_dtype) -> torch.Tensor:
         """Phase 2: run ``C = A @ B`` for compressed operands ``a``/``b``
-        (BlockCSR/BlockCSC in the plan's Table 3 formats).
+        (BlockCSR/BlockCSC in the plan's Table 3 formats); ``b`` is the
+        dense tensor itself where :meth:`reads_b_in_place` said so.
 
         Must not rebuild any phase-1 artifact —
         ``repro_torch.api.PHASE1_COUNTERS`` stays untouched.

@@ -15,7 +15,10 @@ The counterpart of the JAX package's ``pallas`` backend:
   OP, ``stream_panel_spmm`` (K2) for Gustavson.  N-stationary variants run
   through the transpose duality ``C = (Bᵀ Aᵀ)ᵀ``: the block stacks are
   swapped, transposed and made contiguous for the kernels, against
-  schedules that phase 1 built for the transposed problem;
+  schedules that phase 1 built for the transposed problem.  An
+  M-stationary plan also takes B dense (:meth:`CudaBackend.reads_b_in_place`
+  says which B): the kernel then reads B's planned blocks in place, through
+  the block coordinates ``prepare`` uploaded, and no gather runs;
 - :meth:`CudaBackend.uniform_aux` pads sibling schedules to shared extents.
 
 While tracing is on (:mod:`repro_torch.obs`) an execute names its route on
@@ -37,9 +40,10 @@ import torch
 
 from .. import obs
 from ..core import dataflows as df
-from ..kernels.stream import (DeviceSchedule, device_schedule, pad_schedule,
-                              schedule_from_ip, schedule_from_stream,
-                              stream_panel_spmm, stream_spmm)
+from ..kernels.stream import (BlockCoords, DeviceSchedule, block_coords,
+                              device_schedule, pad_schedule, schedule_from_ip,
+                              schedule_from_stream, stream_panel_spmm,
+                              stream_spmm)
 from .base import TABLE3_FORMATS, BackendCapability, ExecutionBackend
 
 __all__ = ["CudaBackend", "KernelCall"]
@@ -55,18 +59,25 @@ class KernelCall(NamedTuple):
 
     kernel: Callable            # stream_spmm (K1) or stream_panel_spmm (K2)
     x: Any                      # execution-orientation A, contiguous fp32
-    y: Any                      # execution-orientation B, contiguous fp32
+    y: Any                      # execution-orientation B, contiguous fp32;
+    #                             the dense (K, N) tensor where b_coords is set
     schedule: DeviceSchedule
     transposed: bool            # the launch computes Cᵀ (N-stationary)
+    b_coords: BlockCoords = None   # y read in place through these
 
     @property
     def out_kw(self) -> Dict[str, Any]:
-        return dict(out_grid=(self.x.grid[0], self.y.grid[1]),
+        nb = (self.y.grid if self.b_coords is None else self.b_coords.grid)[1]
+        return dict(out_grid=(self.x.grid[0], nb),
                     out_shape=(self.x.shape[0], self.y.shape[1]))
 
     def run(self, fn: Callable = None, **kw) -> torch.Tensor:
         """``fn`` (default: the kernel) on this launch's inputs."""
-        return (fn or self.kernel)(self.x.data, self.y.data, self.schedule,
+        if self.b_coords is None:
+            y = self.y.data
+        else:
+            y, kw["b_coords"] = self.y, self.b_coords
+        return (fn or self.kernel)(self.x.data, y, self.schedule,
                                    **self.out_kw, **kw)
 
 
@@ -116,8 +127,10 @@ class CudaBackend(ExecutionBackend):
         """Lower the index plan to the kernels' work list, upload it once.
 
         N-stationary schedules are built for the transposed problem,
-        matching how :meth:`execute` runs them.  High-occupancy plans also
-        carry the dense-escape marker (``"dense"``).
+        matching how :meth:`execute` runs them.  M-stationary plans also
+        carry B's block coordinates (``"b_coords"``), through which the
+        kernels read a dense B in place.  High-occupancy plans also carry
+        the dense-escape marker (``"dense"``).
         """
         base = plan.dataflow[:-2]
         if base == "ip":
@@ -129,6 +142,10 @@ class CudaBackend(ExecutionBackend):
             "stream_schedule": sched,
             "device_schedule": device_schedule(sched, plan.device),
         }
+        if not plan.dataflow.endswith("_n"):
+            lay = plan.b_layout
+            aux["b_coords"] = block_coords(lay.rows, lay.cols, lay.shape,
+                                           lay.block_shape, plan.device)
         if self._work_ratio(plan) >= self.dense_threshold:
             aux["dense"] = ()
         return aux
@@ -180,13 +197,29 @@ class CudaBackend(ExecutionBackend):
         with obs.span("plan.apply.escape.gemm"):
             return torch.matmul(a_d, b_d)[:m, :n].to(out_dtype)
 
+    def reads_b_in_place(self, plan, b) -> bool:
+        """Can :meth:`execute` take this ``b`` dense, its planned blocks
+        read in place by the kernel?  So for an M-stationary plan off the
+        dense escape and a plain fp32 ``(K, N)`` tensor on the plan's
+        device with unit column stride; every other B is gathered."""
+        coords = plan.aux.get("b_coords")
+        return (coords is not None and "dense" not in plan.aux
+                and type(b) is torch.Tensor and b.dtype == torch.float32
+                and b.device == coords.rows.device
+                and tuple(b.shape) == coords.shape and b.stride(1) == 1
+                and 0 < b.stride(0) < 2 ** 31)
+
     def kernel_call(self, plan, a, b) -> KernelCall:
         """The kernel, operands and schedule :meth:`execute` launches for a
-        sparse (not dense-escape) ``plan`` on compressed ``(a, b)``."""
+        sparse (not dense-escape) ``plan`` on compressed ``a`` and ``b``
+        compressed, or dense where :meth:`reads_b_in_place` took it."""
         base = plan.dataflow[:-2]
         kernel = stream_panel_spmm if base == "gust" else stream_spmm
         sched = plan.aux["device_schedule"]
         if not plan.dataflow.endswith("_n"):
+            if isinstance(b, torch.Tensor):
+                return KernelCall(kernel, _kernel_ready(a), b, sched, False,
+                                  plan.aux["b_coords"])
             return KernelCall(kernel, _kernel_ready(a), _kernel_ready(b),
                               sched, False)
         # transpose duality: C = (Bᵀ Aᵀ)ᵀ, on schedules built transposed

@@ -44,6 +44,7 @@ __all__ = [
     "random_block_sparse",
     "random_sparse_dense",
     "block_occupancy",
+    "blockize",
     "to_host",
     "target_device",
 ]
@@ -78,6 +79,17 @@ class SparseFormat(enum.Enum):
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def blockize(x: torch.Tensor, block_shape) -> torch.Tensor:
+    """(M, K) -> (Mb, Kb, bm, bk) view of its blocks, zero-padded to whole
+    blocks (a copy only where it is padded)."""
+    m, k = x.shape
+    bm, bk = block_shape
+    pm, pk = _ceil_div(m, bm) * bm, _ceil_div(k, bk) * bk
+    if (pm, pk) != (m, k):
+        x = torch.nn.functional.pad(x, (0, pk - k, 0, pm - m))
+    return x.reshape(pm // bm, bm, pk // bk, bk).transpose(1, 2)
 
 
 def to_host(x) -> np.ndarray:

@@ -52,6 +52,14 @@
 // multiplies the slot that has landed, so the next slices' loads are in
 // flight during the current slice's FMAs, across entry boundaries.
 //
+// B comes in one of two forms, fixed per kernel instance (IN_PLACE):
+// a stack of (bk, bn) blocks, gathered beforehand, or the dense (K, N)
+// operand itself, read in place: B slot s is then the block at block row
+// b_row[s] and block column b_col[s], rows ldb floats apart, and its rows
+// past K load as zeros, as the stack's padding does.  Both forms feed the
+// same slices to the same sums, so they give the same bits; the in-place
+// form saves the gather's write and second read of every present block.
+//
 // What bounds them on the H100: the products run on the CUDA cores in fp32
 // (67 TFLOP/s on the data sheet), not on the tensor cores, to keep fp32
 // parity with the reference.  Each work entry moves (bm*bk + bk*bn)*4 bytes
@@ -96,6 +104,11 @@ struct Walk {
     int bm, bk, bn, mb, M, N;
     int tiles_n;               // column sub-tiles of one (bm, bn) block
     int vec;                   // 16-byte copies are aligned
+    // B read in place (b is the dense (K, N) operand); unused on a stack
+    const int* b_row;          // (nnzb,) block row of each B slot
+    const int* b_col;          // (nnzb,) block column of each B slot
+    int K;                     // B's rows
+    int ldb;                   // B's row stride (floats)
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -126,8 +139,9 @@ constexpr int smem_bytes() {
 }
 
 // One CUDA block: chunk blockIdx.x of the walk, on sub-tile blockIdx.y
-// ((16 RI) x CN) of its segment's (bm, bn) tile.
-template <int RI, int CN>
+// ((16 RI) x CN) of its segment's (bm, bn) tile.  IN_PLACE: B is the
+// dense operand (see the head of the file).
+template <int RI, int CN, bool IN_PLACE>
 __device__ __forceinline__ void walk_chunk(const Walk& w, float* smem) {
     constexpr int TM = 16 * RI, CJ = CN / 16;   // thread tile RI x CJ
     constexpr int A_STAGE = TM * LDA, B_STAGE = TK * CN;
@@ -160,7 +174,20 @@ __device__ __forceinline__ void walk_chunk(const Walk& w, float* smem) {
     auto load = [&](int slot, int t) {
         const int e = w0 + t / per, k0 = (t % per) * TK;
         const float* ab = w.a + w.a_slot[e] * a_stride + (size_t)m0 * bk;
-        const float* bb = w.b + w.b_slot[e] * b_stride + n0;
+        // the B block's first row, its rows that exist, their stride
+        const float* bb;
+        int kv;
+        size_t ldb;
+        if constexpr (IN_PLACE) {
+            const int sb = w.b_slot[e], r0 = w.b_row[sb] * bk;
+            ldb = (size_t)w.ldb;
+            bb = w.b + (size_t)r0 * ldb + (size_t)w.b_col[sb] * bn + n0;
+            kv = min(bk, w.K - r0);
+        } else {
+            bb = w.b + w.b_slot[e] * b_stride + n0;
+            kv = bk;
+            ldb = (size_t)bn;
+        }
         float* ad = as + slot * A_STAGE;
         float* bd = bs + slot * B_STAGE;
         for (int q = tid; q < TM * (TK / 4); q += THREADS) {
@@ -180,15 +207,15 @@ __device__ __forceinline__ void walk_chunk(const Walk& w, float* smem) {
         }
         for (int q = tid; q < TK * (CN / 4); q += THREADS) {
             const int k = q / (CN / 4), cc = (q % (CN / 4)) * 4;
-            const float* src = bb + (size_t)(k0 + k) * bn + cc;
+            const float* src = bb + (size_t)(k0 + k) * ldb + cc;
             float* dst = bd + k * CN + cc;
             if (w.vec) {
-                const bool ok = k0 + k < bk && cc < tn;
+                const bool ok = k0 + k < kv && cc < tn;
                 cp_async16(dst, ok ? src : bb, ok);
             } else {
 #pragma unroll
                 for (int u = 0; u < 4; ++u) {
-                    const bool ok = k0 + k < bk && cc + u < tn;
+                    const bool ok = k0 + k < kv && cc + u < tn;
                     cp_async4(dst + u, ok ? src + u : bb, ok);
                 }
             }
@@ -276,11 +303,11 @@ __device__ __forceinline__ void reduce_split(const Walk& w) {
 }
 
 // K1: a schedule's runs; sub-tiles (16 RI) x 64.
-template <int RI>
+template <int RI, bool IN_PLACE>
 __global__ void __launch_bounds__(THREADS) stream_dest_kernel(
         const __grid_constant__ Walk w) {
     extern __shared__ __align__(16) float dest_smem[];
-    walk_chunk<RI, 64>(w, dest_smem);
+    walk_chunk<RI, 64, IN_PLACE>(w, dest_smem);
 }
 
 __global__ void __launch_bounds__(THREADS) stream_reduce_kernel(
@@ -289,11 +316,11 @@ __global__ void __launch_bounds__(THREADS) stream_reduce_kernel(
 }
 
 // K2: a panel schedule's column segments; sub-tiles (16 RI) x CN.
-template <int RI, int CN>
+template <int RI, int CN, bool IN_PLACE>
 __global__ void __launch_bounds__(THREADS) stream_panel_kernel(
         const __grid_constant__ Walk w) {
     extern __shared__ __align__(16) float panel_smem[];
-    walk_chunk<RI, CN>(w, panel_smem);
+    walk_chunk<RI, CN, IN_PLACE>(w, panel_smem);
 }
 
 __global__ void __launch_bounds__(THREADS) stream_panel_reduce_kernel(
@@ -312,8 +339,11 @@ int launch_walk(WalkKernel kernel, Walk w, int n_chunk,
     if (err != cudaSuccess) return (int)err;
     const int tiles_m = (min(w.bm, w.M) + 16 * RI - 1) / (16 * RI);
     w.tiles_n = (w.bn + CN - 1) / CN;
+    // in place, a 16-byte copy must also start a row at a multiple of 4
+    // floats and end at or before N
     w.vec = w.bk % 4 == 0 && w.bn % 4 == 0 && (uintptr_t)w.a % 16 == 0
-        && (uintptr_t)w.b % 16 == 0;
+        && (uintptr_t)w.b % 16 == 0
+        && (w.b_row == nullptr || (w.ldb % 4 == 0 && w.N % 4 == 0));
     const dim3 grid(n_chunk, tiles_m * w.tiles_n);
     kernel<<<grid, THREADS, smem, stream>>>(w);
     return (int)cudaGetLastError();
@@ -329,15 +359,34 @@ int launch_reduce(WalkKernel kernel, const Walk& w, int n_split,
     return (int)cudaGetLastError();
 }
 
-// K2's column width: 32 where the block is at most 32 wide
-template <int CN>
+// K1's sub-tile rows
+template <bool IN_PLACE>
+int launch_dest(int rows, const Walk& w, int n_chunk, cudaStream_t s) {
+    if (rows == 16)
+        return launch_walk<1, 64>(stream_dest_kernel<1, IN_PLACE>, w,
+                                  n_chunk, s);
+    if (rows == 32)
+        return launch_walk<2, 64>(stream_dest_kernel<2, IN_PLACE>, w,
+                                  n_chunk, s);
+    if (rows == 64)
+        return launch_walk<4, 64>(stream_dest_kernel<4, IN_PLACE>, w,
+                                  n_chunk, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// K2's sub-tile rows; its column width: 32 where the block is at most 32
+// wide
+template <int CN, bool IN_PLACE>
 int launch_panel(int rows, const Walk& w, int n_chunk, cudaStream_t s) {
     if (rows == 16)
-        return launch_walk<1, CN>(stream_panel_kernel<1, CN>, w, n_chunk, s);
+        return launch_walk<1, CN>(stream_panel_kernel<1, CN, IN_PLACE>, w,
+                                  n_chunk, s);
     if (rows == 32)
-        return launch_walk<2, CN>(stream_panel_kernel<2, CN>, w, n_chunk, s);
+        return launch_walk<2, CN>(stream_panel_kernel<2, CN, IN_PLACE>, w,
+                                  n_chunk, s);
     if (rows == 64)
-        return launch_walk<4, CN>(stream_panel_kernel<4, CN>, w, n_chunk, s);
+        return launch_walk<4, CN>(stream_panel_kernel<4, CN, IN_PLACE>, w,
+                                  n_chunk, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -346,7 +395,8 @@ Walk make_walk(const void* a, const void* b, const void* a_slot,
                const void* chunk_seg, const void* chunk_slot,
                const void* seg_ci, const void* seg_cj, const void* split_seg,
                const void* split_start, void* part, int bm, int bk, int bn,
-               int mb, void* c, int M, int N) {
+               int mb, void* c, int M, int N, const void* b_row,
+               const void* b_col, int K, int ldb) {
     Walk w;
     w.a = (const float*)a;
     w.b = (const float*)b;
@@ -369,6 +419,10 @@ Walk make_walk(const void* a, const void* b, const void* a_slot,
     w.N = N;
     w.tiles_n = 0;
     w.vec = 0;
+    w.b_row = (const int*)b_row;
+    w.b_col = (const int*)b_col;
+    w.K = K;
+    w.ldb = ldb;
     return w;
 }
 
@@ -380,6 +434,8 @@ Walk make_walk(const void* a, const void* b, const void* a_slot,
 // DeviceSchedule.  part holds one (bm, bn) fp32 slot per chunk of a split
 // segment (null when n_split is 0, and then the second pass does not run).
 // rows (16, 32 or 64): the sub-tile's row extent, from the wrapper.
+// b_row and b_col null: b is a block stack; else b is the dense (K, N)
+// operand with row stride ldb, read in place through them.
 
 // K1: the entries and segments are the schedule's own.
 extern "C" int flexagon_stream_spmm(
@@ -388,21 +444,16 @@ extern "C" int flexagon_stream_spmm(
         const void* seg_ci, const void* seg_cj, const void* split_seg,
         const void* split_start, void* part, int n_chunk, int n_split,
         int rows, int bm, int bk, int bn, int mb, void* c, int M, int N,
+        const void* b_row, const void* b_col, int K, int ldb,
         void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (n_split > 0 && part == nullptr) return (int)cudaErrorInvalidValue;
     const Walk w = make_walk(a, b, a_slot, b_slot, chunk_start, chunk_seg,
                              chunk_slot, seg_ci, seg_cj, split_seg,
-                             split_start, part, bm, bk, bn, mb, c, M, N);
-    int err;
-    if (rows == 16)
-        err = launch_walk<1, 64>(stream_dest_kernel<1>, w, n_chunk, s);
-    else if (rows == 32)
-        err = launch_walk<2, 64>(stream_dest_kernel<2>, w, n_chunk, s);
-    else if (rows == 64)
-        err = launch_walk<4, 64>(stream_dest_kernel<4>, w, n_chunk, s);
-    else
-        return (int)cudaErrorInvalidValue;
+                             split_start, part, bm, bk, bn, mb, c, M, N,
+                             b_row, b_col, K, ldb);
+    const int err = b_row ? launch_dest<true>(rows, w, n_chunk, s)
+                          : launch_dest<false>(rows, w, n_chunk, s);
     if (err || n_split == 0) return err;
     return launch_reduce(stream_reduce_kernel, w, n_split, s);
 }
@@ -415,14 +466,21 @@ extern "C" int flexagon_stream_panel_spmm(
         const void* col_ci, const void* col_cj, const void* split_seg,
         const void* split_start, void* part, int n_chunk, int n_split,
         int rows, int bm, int bk, int bn, int mb, void* c, int M, int N,
+        const void* b_row, const void* b_col, int K, int ldb,
         void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (n_split > 0 && part == nullptr) return (int)cudaErrorInvalidValue;
     const Walk w = make_walk(a, b, a_slot, b_slot, chunk_start, chunk_seg,
                              chunk_slot, col_ci, col_cj, split_seg,
-                             split_start, part, bm, bk, bn, mb, c, M, N);
-    const int err = bn <= 32 ? launch_panel<32>(rows, w, n_chunk, s)
-                             : launch_panel<64>(rows, w, n_chunk, s);
+                             split_start, part, bm, bk, bn, mb, c, M, N,
+                             b_row, b_col, K, ldb);
+    int err;
+    if (b_row)
+        err = bn <= 32 ? launch_panel<32, true>(rows, w, n_chunk, s)
+                       : launch_panel<64, true>(rows, w, n_chunk, s);
+    else
+        err = bn <= 32 ? launch_panel<32, false>(rows, w, n_chunk, s)
+                       : launch_panel<64, false>(rows, w, n_chunk, s);
     if (err || n_split == 0) return err;
     return launch_reduce(stream_panel_reduce_kernel, w, n_split, s);
 }

@@ -53,7 +53,7 @@ from .. import obs
 from ..backends import get_backend
 from ..backends.base import TABLE3_FORMATS
 from ..core import dataflows as df
-from ..core.formats import SparseFormat
+from ..core.formats import SparseFormat, blockize
 from ..core.selector import DataflowEstimate, DeviceSpec, LayerShape, estimate
 from ..launch.mesh import is_process_mesh, mesh_shape
 from ..memory.budget import MemoryBudget, output_bytes
@@ -360,9 +360,9 @@ def _compress_at(layout, x: torch.Tensor, shape: Tuple[int, int]):
     operand of logical ``shape``, which may stop short of ``x`` inside
     its last blocks: an executor then computes only those rows and
     columns."""
-    from ..api import SparseOperand, _blockize
+    from ..api import SparseOperand
 
-    data = _blockize(x, layout.block_shape)[layout.rows_t, layout.cols_t]
+    data = blockize(x, layout.block_shape)[layout.rows_t, layout.cols_t]
     return SparseOperand(data, layout.indptr, layout.indices, tuple(shape),
                          layout.block_shape, layout.fmt)
 

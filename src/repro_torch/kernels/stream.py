@@ -27,6 +27,12 @@ schedule also gets K2's :class:`ColumnTable` (:func:`column_table`): each
 run's entries regrouped by destination column block, so that K2 walks one
 output tile's entries destination-major, as K1 does, with its own chunks.
 
+B reaches either kernel in one of two forms: a stack of ``(bk, bn)``
+blocks, or, with ``b_coords=`` (:class:`BlockCoords`, built once per plan
+by :func:`block_coords`), the dense ``(K, N)`` operand itself, which the
+kernel reads in place through each block slot's coordinates: no gather
+runs, and the sums are the stack form's, bit for bit.
+
 Each wrapper dispatches on the device of its operands alone: a tensor on
 the CPU runs the plain PyTorch version in this module
 (:func:`stream_spmm_plain`, :func:`stream_panel_spmm_plain`); a tensor
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from ..core.dataflows import IPPlan, StreamPlan
+from ..core.formats import blockize
 from . import build
 
 __all__ = [
@@ -51,6 +58,8 @@ __all__ = [
     "StreamSchedule",
     "DeviceSchedule",
     "ColumnTable",
+    "BlockCoords",
+    "block_coords",
     "schedule_from_ip",
     "schedule_from_stream",
     "pad_schedule",
@@ -497,6 +506,52 @@ def device_schedule(s: StreamSchedule, device, *,
         *(up(x) for x in chunks), chunk, int(chunks[4][-1]), cols)
 
 
+@dataclasses.dataclass
+class BlockCoords:
+    """Where each block slot of a ``(K, N)`` operand's block layout lies
+    in the dense operand, on one device: what K1 and K2 read a dense B in
+    place through.  Built once per plan (:func:`block_coords`)."""
+
+    rows: torch.Tensor          # (nnzb,) int32 — block row of each slot
+    cols: torch.Tensor          # (nnzb,) int32 — block column of each slot
+    shape: Tuple[int, int]      # (K, N) of the dense operand
+    block_shape: Tuple[int, int]   # (bk, bn)
+
+    @property
+    def nnzb(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        (k, n), (bk, bn) = self.shape, self.block_shape
+        return -(-k // bk), -(-n // bn)
+
+
+def block_coords(rows, cols, shape, block_shape, device) -> BlockCoords:
+    """Upload a block layout's slot coordinates (``rows``/``cols``, host
+    arrays in slot order) as int32 tables on ``device``."""
+    rows = np.ascontiguousarray(rows, np.int32)
+    cols = np.ascontiguousarray(cols, np.int32)
+    grid = (-(-shape[0] // block_shape[0]), -(-shape[1] // block_shape[1]))
+    if rows.shape != cols.shape or (rows.size and (
+            min(rows.min(), cols.min()) < 0 or rows.max() >= grid[0]
+            or cols.max() >= grid[1])):
+        raise ValueError(f"block coordinates outside the {grid} grid")
+    return BlockCoords(torch.as_tensor(rows, device=device),
+                       torch.as_tensor(cols, device=device),
+                       (int(shape[0]), int(shape[1])),
+                       (int(block_shape[0]), int(block_shape[1])))
+
+
+def _b_blocks(b_data, b_coords):
+    """B as a block stack: ``b_data`` itself, or read from the dense
+    operand through ``b_coords``, zero-padded at the ragged edges."""
+    if b_coords is None:
+        return b_data
+    return blockize(b_data, b_coords.block_shape)[b_coords.rows.long(),
+                                                  b_coords.cols.long()]
+
+
 def _psums(a_data, b_data, ds: DeviceSchedule):
     """Per-entry block products and each entry's segment index."""
     psums = torch.bmm(a_data.float()[ds.a_slot], b_data.float()[ds.b_slot])
@@ -514,12 +569,16 @@ def _crop(c, out_shape):
 
 def stream_spmm_plain(a_data: torch.Tensor, b_data: torch.Tensor,
                       ds: DeviceSchedule, *, out_grid: Tuple[int, int],
-                      out_shape: Tuple[int, int]) -> torch.Tensor:
+                      out_shape: Tuple[int, int],
+                      b_coords: BlockCoords = None) -> torch.Tensor:
     """K1 in plain PyTorch: sum each segment, place it at its destination.
 
     Segments sum with ``index_add_``, sequential on the CPU and with
     atomics on a card, so it agrees with the kernel to fp32 rounding.
+    With ``b_coords``, ``b_data`` is the dense B, its blocks taken through
+    the coordinates.
     """
+    b_data = _b_blocks(b_data, b_coords)
     mb, nb = out_grid
     bm, bn = a_data.shape[1], b_data.shape[2]
     c = torch.zeros((mb, nb, bm, bn), dtype=torch.float32,
@@ -536,9 +595,12 @@ def stream_spmm_plain(a_data: torch.Tensor, b_data: torch.Tensor,
 def stream_panel_spmm_plain(a_data: torch.Tensor, b_data: torch.Tensor,
                             ds: DeviceSchedule, *,
                             out_grid: Tuple[int, int],
-                            out_shape: Tuple[int, int]) -> torch.Tensor:
+                            out_shape: Tuple[int, int],
+                            b_coords: BlockCoords = None) -> torch.Tensor:
     """K2 in plain PyTorch: merge each psum into its segment's row panel at
-    column block ``cj``, then place the panels at their block rows."""
+    column block ``cj``, then place the panels at their block rows.
+    ``b_coords`` as in :func:`stream_spmm_plain`."""
+    b_data = _b_blocks(b_data, b_coords)
     mb, nb = out_grid
     bm, bn = a_data.shape[1], b_data.shape[2]
     c = torch.zeros((mb, nb, bm, bn), dtype=torch.float32,
@@ -563,7 +625,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         # K1 and K2 take the same arguments: a walk and its chunk table
         for fn in (lib.flexagon_stream_spmm, lib.flexagon_stream_panel_spmm):
-            fn.argtypes = [p] * 12 + [i] * 3 + [i] * 4 + [p, i, i, p]
+            fn.argtypes = [p] * 12 + [i] * 3 + [i] * 4 + [p, i, i] \
+                + [p, p, i, i, p]
             fn.restype = i
         lib.flexagon_cuda_error_string.argtypes = [i]
         lib.flexagon_cuda_error_string.restype = ctypes.c_char_p
@@ -571,7 +634,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape):
+def _b_shape(b_data, b_coords):
+    """(slots, bk, bn) of B in either form."""
+    if b_coords is None:
+        return tuple(b_data.shape)
+    return (b_coords.nnzb, *b_coords.block_shape)
+
+
+def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape,
+           b_coords=None):
     """Everything the kernel assumes, checked on the host before launch."""
     dev = a_data.device
     if dev.type != "cuda":
@@ -581,44 +652,66 @@ def _check(name, a_data, b_data, ds: DeviceSchedule, out_grid, out_shape):
         if t.device != dev or ds.device != dev:
             raise ValueError(f"{name}: operands and schedule must share one "
                              f"device ({label} on {t.device})")
-        if t.dtype != torch.float32 or t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"{name}: {label} must be a contiguous float32 "
-                             f"(nnzb, rows, cols) block stack, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    if a_data.shape[2] != b_data.shape[1]:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {label} must be float32, got "
+                             f"{t.dtype}")
+    if a_data.dim() != 3 or not a_data.is_contiguous():
+        raise ValueError(f"{name}: a_data must be a contiguous (nnzb, rows, "
+                         f"cols) block stack, got {tuple(a_data.shape)}")
+    if b_coords is None:
+        if b_data.dim() != 3 or not b_data.is_contiguous():
+            raise ValueError(f"{name}: b_data must be a contiguous (nnzb, "
+                             f"rows, cols) block stack, got "
+                             f"{tuple(b_data.shape)}")
+    elif (tuple(b_data.shape) != b_coords.shape or b_data.stride(1) != 1
+          or b_coords.rows.device != dev
+          or not 0 < b_data.stride(0) < 2 ** 31):
+        raise ValueError(f"{name}: a B read in place must be the planned "
+                         f"{b_coords.shape} operand with unit column stride "
+                         f"on {dev}, got {tuple(b_data.shape)} strides "
+                         f"{b_data.stride()} on {b_data.device}")
+    n_b, bk, bn = _b_shape(b_data, b_coords)
+    if a_data.shape[2] != bk:
         raise ValueError(f"{name}: block depths disagree, A blocks "
-                         f"{tuple(a_data.shape[1:])}, B blocks "
-                         f"{tuple(b_data.shape[1:])}")
-    if ds.max_a_slot >= a_data.shape[0] or ds.max_b_slot >= b_data.shape[0]:
+                         f"{tuple(a_data.shape[1:])}, B blocks {(bk, bn)}")
+    if ds.max_a_slot >= a_data.shape[0] or ds.max_b_slot >= n_b:
         raise ValueError(f"{name}: schedule slots exceed the block stacks")
     mb, nb = out_grid
-    bm, bn = a_data.shape[1], b_data.shape[2]
+    bm = a_data.shape[1]
     m, n = out_shape
-    if m > mb * bm or n > nb * bn or ds.max_cj >= nb:
+    if m > mb * bm or n > nb * bn or ds.max_cj >= nb or (
+            b_coords is not None and n != b_coords.shape[1]):
         raise ValueError(f"{name}: output {out_shape} / grid {out_grid} "
                          f"disagree with the blocks or the schedule")
 
 
 def _launch(entry: str, a_data, b_data, ds: DeviceSchedule, out_grid,
-            out_shape, out_dtype, pointers, dims) -> torch.Tensor:
+            out_shape, out_dtype, pointers, dims,
+            b_coords=None) -> torch.Tensor:
     """Check, zero C, and launch one C entry of ``csrc/stream_spmm.cu``
     over ``pointers`` (the walk's arrays and its workspace) and the ints
-    ``dims``.
+    ``dims``; with ``b_coords``, ``b_data`` is the dense B, read in place.
 
     The caller counts the launch."""
     lib = _lib()
     name = entry.removeprefix("flexagon_")
-    _check(name, a_data, b_data, ds, out_grid, out_shape)
+    _check(name, a_data, b_data, ds, out_grid, out_shape, b_coords)
     c = torch.zeros(tuple(out_shape), dtype=torch.float32,
                     device=a_data.device)
-    bm, bk, bn = a_data.shape[1], a_data.shape[2], b_data.shape[2]
+    _, bk, bn = _b_shape(b_data, b_coords)
+    bm = a_data.shape[1]
     stream = torch.cuda.current_stream(a_data.device).cuda_stream
     ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr())
             for t in (a_data, b_data, *pointers)]
+    if b_coords is None:
+        in_place = (None, None, 0, 0)
+    else:
+        in_place = (b_coords.rows.data_ptr(), b_coords.cols.data_ptr(),
+                    b_data.shape[0], b_data.stride(0))
     err = getattr(lib, entry)(
         *ptrs, *dims, bm, bk, bn, out_grid[0],
         ctypes.c_void_p(c.data_ptr()), out_shape[0], out_shape[1],
-        ctypes.c_void_p(stream))
+        *in_place, ctypes.c_void_p(stream))
     if err:
         msg = lib.flexagon_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
@@ -629,25 +722,27 @@ def _launch(entry: str, a_data, b_data, ds: DeviceSchedule, out_grid,
 def stream_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
                 ds: DeviceSchedule, *, out_grid: Tuple[int, int],
                 out_shape: Tuple[int, int],
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32,
+                b_coords: BlockCoords = None) -> torch.Tensor:
     """Run a destination-major schedule through the block-run kernel (K1).
 
     ``a_data``/``b_data`` are the compressed operands' block stacks
-    (``(nnzb, bm, bk)`` / ``(nnzb, bk, bn)``); ``ds`` is the
-    :class:`DeviceSchedule` on the operands' device.  Returns the dense
-    ``out_shape`` product.  An empty schedule returns zeros and launches
-    nothing.  On the card, the chunks of split segments write partial
-    tiles to a workspace that the kernel's second pass sums in chunk
-    order; both passes are one launch.
+    (``(nnzb, bm, bk)`` / ``(nnzb, bk, bn)``); with ``b_coords``,
+    ``b_data`` is instead the dense ``(K, N)`` fp32 B with unit column
+    stride, read in place.  ``ds`` is the :class:`DeviceSchedule` on the
+    operands' device.  Returns the dense ``out_shape`` product.  An empty
+    schedule returns zeros and launches nothing.  On the card, the chunks
+    of split segments write partial tiles to a workspace that the kernel's
+    second pass sums in chunk order; both passes are one launch.
     """
     if a_data.device.type == "cpu":
         out = stream_spmm_plain(a_data, b_data, ds, out_grid=out_grid,
-                                out_shape=out_shape)
+                                out_shape=out_shape, b_coords=b_coords)
         return out.to(out_dtype)
     if ds.n_work == 0:
         return torch.zeros(tuple(out_shape), dtype=out_dtype,
                            device=a_data.device)
-    bm, bn = a_data.shape[1], b_data.shape[2]
+    bm, bn = a_data.shape[1], _b_shape(b_data, b_coords)[2]
     part = (torch.empty((ds.n_slots, bm, bn), dtype=torch.float32,
                         device=a_data.device) if ds.n_split else None)
     out = _launch("flexagon_stream_spmm", a_data, b_data, ds, out_grid,
@@ -655,7 +750,8 @@ def stream_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
                   (ds.a_slot, ds.b_slot, ds.chunk_start, ds.chunk_seg,
                    ds.chunk_slot, ds.seg_ci, ds.seg_cj, ds.split_seg,
                    ds.split_start, part),
-                  (ds.n_chunk, ds.n_split, dest_rows(bm, out_shape[0])))
+                  (ds.n_chunk, ds.n_split, dest_rows(bm, out_shape[0])),
+                  b_coords)
     stream_spmm.launches += 1
     return out
 
@@ -666,7 +762,8 @@ stream_spmm.launches = 0
 def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
                       ds: DeviceSchedule, *, out_grid: Tuple[int, int],
                       out_shape: Tuple[int, int],
-                      out_dtype=torch.float32) -> torch.Tensor:
+                      out_dtype=torch.float32,
+                      b_coords: BlockCoords = None) -> torch.Tensor:
     """Run a row-major schedule through the row-panel kernel (K2).
 
     Arguments as :func:`stream_spmm`; ``ds`` is a panel schedule.  Each
@@ -679,7 +776,7 @@ def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
     """
     if a_data.device.type == "cpu":
         out = stream_panel_spmm_plain(a_data, b_data, ds, out_grid=out_grid,
-                                      out_shape=out_shape)
+                                      out_shape=out_shape, b_coords=b_coords)
         return out.to(out_dtype)
     cols = ds.cols
     if cols is None:
@@ -688,7 +785,7 @@ def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
     if cols.n_chunk == 0:
         return torch.zeros(tuple(out_shape), dtype=out_dtype,
                            device=a_data.device)
-    bm, bn = a_data.shape[1], b_data.shape[2]
+    bm, bn = a_data.shape[1], _b_shape(b_data, b_coords)[2]
     part = (torch.empty((cols.n_slots, bm, bn), dtype=torch.float32,
                         device=a_data.device) if cols.n_split else None)
     out = _launch("flexagon_stream_panel_spmm", a_data, b_data, ds, out_grid,
@@ -696,7 +793,8 @@ def stream_panel_spmm(a_data: torch.Tensor, b_data: torch.Tensor,
                   (cols.a_slot, cols.b_slot, cols.chunk_start,
                    cols.chunk_seg, cols.chunk_slot, cols.col_ci, cols.col_cj,
                    cols.split_seg, cols.split_start, part),
-                  (cols.n_chunk, cols.n_split, dest_rows(bm, out_shape[0])))
+                  (cols.n_chunk, cols.n_split, dest_rows(bm, out_shape[0])),
+                  b_coords)
     stream_panel_spmm.launches += 1
     return out
 

@@ -306,3 +306,90 @@ def test_panel_apply_with_split_columns_makes_no_upload(dataflow,
         np.testing.assert_allclose(plan.apply(ta, tb).numpy(), a @ b, **TOL)
     assert PHASE1_COUNTERS == before
     assert uploads == [], "apply copied host arrays to the device"
+
+
+def _b_form(form, b):
+    """B handed to ``apply`` in the form a routing case names."""
+    t = torch.as_tensor(b)
+    if form == "fp64":
+        return t.double()
+    if form == "transposed":          # (K, N) with column stride K
+        return torch.as_tensor(np.ascontiguousarray(b.T)).T
+    if form == "row_view":            # rows wider than N, unit column stride
+        wide = torch.zeros((t.shape[0], t.shape[1] + 3))
+        wide[:, 1:-2] = t
+        return wide[:, 1:-2]
+    return t
+
+
+@pytest.mark.parametrize("dataflow,form,route", [
+    ("ip_m", "dense", "in_place"),
+    ("op_m", "dense", "in_place"),
+    ("gust_m", "dense", "in_place"),
+    ("gust_m", "row_view", "in_place"),
+    ("ip_n", "dense", "gather"),
+    ("escape", "dense", "gather"),
+    ("ip_m", "packed", "gather"),
+    ("ip_m", "fp64", "gather"),
+    ("op_m", "transposed", "gather"),
+])
+def test_dense_b_routes_in_place_or_gathers(dataflow, form, route):
+    """On ``cuda`` (CPU tensors: the plain forms), a dense fp32 B with unit
+    column stride of an M-stationary kernel plan reaches the kernel as it
+    is (``b_ingest="in_place"``, no ``plan.apply.ingest`` span for b); an
+    N-stationary plan, the escape, a packed B, an fp64 B and a transposed
+    view gather.  Every case gives the gather path's bits, and JAX's
+    ``reference`` backend to 1e-4."""
+    from repro_torch import obs
+    from repro_torch.obs import trace as trace_mod
+
+    escape = dataflow == "escape"
+    a, b = _case(seed=11, da=0.9 if escape else 0.4,
+                 db=0.9 if escape else 0.6)
+    d = "ip_m" if escape else dataflow
+    plan = flexagon_plan(a, b, dataflow=d, block_shape=BS, backend="cuda",
+                         device="cpu")
+    assert ("dense" in plan.aux) == escape
+    x = plan.pack_b(b) if form == "packed" else _b_form(form, b)
+    a_p = plan.pack_a(a)
+    tracer = obs.get_tracer()
+    tracer.clear()
+    obs.enable()
+    try:
+        got = plan.apply(a_p, x)
+        spans = tracer.spans()
+    finally:
+        trace_mod._reset_override()
+        tracer.clear()
+    root = spans[-1]
+    assert root.name == "plan.apply" and root.attrs["b_ingest"] == route
+    gathers = [s for s in spans if s.name == "plan.apply.ingest"
+               and s.attrs == {"operand": "b"}]
+    assert len(gathers) == (route == "gather" and form != "packed")
+    gathered = plan.apply(a_p, plan.pack_b(b))
+    assert torch.equal(got, gathered)
+    want = np.asarray(jax_flexagon_plan(a, b, dataflow=d, block_shape=BS,
+                                        backend="reference").apply(a, b))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+
+
+def test_in_place_route_needs_the_plans_b_coords():
+    """The reference backend reads no B in place, and the cuda backend
+    only with the plan's block coordinates: an N-stationary plan has
+    none."""
+    a, b = _case(seed=12)
+    tb = torch.as_tensor(b)
+    ref = flexagon_plan(a, b, dataflow="ip_m", block_shape=BS,
+                        backend="reference", device="cpu")
+    assert not get_backend("reference").reads_b_in_place(ref, tb)
+    cuda = get_backend("cuda")
+    plan_m = flexagon_plan(a, b, dataflow="gust_m", block_shape=BS,
+                           backend="cuda", device="cpu")
+    plan_n = flexagon_plan(a, b, dataflow="gust_n", block_shape=BS,
+                           backend="cuda", device="cpu")
+    assert "b_coords" in plan_m.aux and "b_coords" not in plan_n.aux
+    assert cuda.reads_b_in_place(plan_m, tb)
+    assert not cuda.reads_b_in_place(plan_n, tb)
+    assert not cuda.reads_b_in_place(plan_m, tb[:, :-1])     # wrong shape
+    assert not cuda.reads_b_in_place(plan_m, b)              # numpy

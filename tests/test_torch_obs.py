@@ -55,10 +55,8 @@ def _tree(spans):
 
 
 @pytest.mark.parametrize("dataflow,route,children", [
-    ("ip_m", "k1", ["plan.apply.ingest", "plan.apply.dispatch",
-                    "plan.apply.launch"]),
-    ("gust_m", "k2", ["plan.apply.ingest", "plan.apply.dispatch",
-                      "plan.apply.launch"]),
+    ("ip_m", "k1", ["plan.apply.dispatch", "plan.apply.launch"]),
+    ("gust_m", "k2", ["plan.apply.dispatch", "plan.apply.launch"]),
     ("ip_n", "k1", ["plan.apply.ingest", "plan.apply.dispatch",
                     "plan.apply.launch"]),
     ("op_n", "k1", ["plan.apply.ingest", "plan.apply.dispatch",
@@ -78,10 +76,13 @@ def test_apply_span_tree(tracing, dataflow, route, children):
     assert tree.pop("plan.apply") is None
     assert set(tree.values()) == {"plan.apply"}
     root = spans[-1]
-    assert root.attrs == {"dataflow": dataflow, "route": route}
-    # A came packed: only B is gathered
+    # A came packed; the kernels read an M-stationary plan's dense B in
+    # place, and an N-stationary plan gathers it
+    in_place = dataflow.endswith("_m")
+    assert root.attrs == {"dataflow": dataflow, "route": route,
+                          "b_ingest": "in_place" if in_place else "gather"}
     assert [s.attrs for s in spans if s.name == "plan.apply.ingest"] == \
-        [{"operand": "b"}]
+        ([] if in_place else [{"operand": "b"}])
     assert all(s.tid == threading.get_native_id() for s in spans)
     inner = [s for s in spans if s is not root]
     assert all(root.t0_ns <= s.t0_ns and s.t0_ns + s.dur_ns
@@ -102,7 +103,8 @@ def test_dense_escape_span_tree_and_counter(tracing):
         "plan.apply.ingest", "plan.apply.ingest",
         "plan.apply.escape.densify", "plan.apply.escape.gemm", "plan.apply"]
     assert [s.attrs.get("operand") for s in spans[:2]] == ["a", "b"]
-    assert spans[-1].attrs == {"dataflow": "ip_m", "route": "escape"}
+    assert spans[-1].attrs == {"dataflow": "ip_m", "route": "escape",
+                               "b_ingest": "gather"}
     assert set(_tree(spans).values()) == {None, "plan.apply"}
     # the kernel path routes elsewhere
     plan.apply(a, b)
@@ -123,7 +125,8 @@ def test_reference_backend_routes_by_name(tracing):
     spans = tracing.spans()
     assert [s.name for s in spans] == ["plan.apply.ingest",
                                        "plan.apply.ingest", "plan.apply"]
-    assert spans[-1].attrs == {"dataflow": "op_m", "route": "reference"}
+    assert spans[-1].attrs == {"dataflow": "op_m", "route": "reference",
+                               "b_ingest": "gather"}
 
 
 def test_tiled_apply_nests_plan_apply(tracing):

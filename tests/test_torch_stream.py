@@ -3,7 +3,8 @@ Pallas kernels in interpret mode.
 
 K1 (``stream_spmm``, IP and OP schedules) and K2 (``stream_panel_spmm``,
 Gustavson schedules) at blocks 8, 16 and 32 with ragged edges, on plain,
-``pad_schedule``-padded and empty schedules.  Tolerance ``rtol=atol=1e-4``
+``pad_schedule``-padded and empty schedules; B as a block stack and as
+the dense operand read in place (``b_coords``), bit for bit the same.  Tolerance ``rtol=atol=1e-4``
 as in ``tests/test_stream_kernels.py``: both sides sum in fp32, in
 different orders.  The CUDA kernels themselves run only on the card
 (``chip_smoke.py``).
@@ -58,6 +59,15 @@ def _schedules(family, a, b, block):
             tks.schedule_from_ip(tp)
     return ja, jb, ta, tb, jks.schedule_from_stream(jp, by_dest=by_dest), \
         tks.schedule_from_stream(tp, by_dest=by_dest)
+
+
+def _b_coords(tb):
+    """The block coordinates of each slot of the torch block operand
+    ``tb`` (BlockCSR: fibers are block rows; BlockCSC: block columns)."""
+    fibers = np.repeat(np.arange(tb.indptr.size - 1), np.diff(tb.indptr))
+    rows, cols = ((fibers, tb.indices) if isinstance(tb, tfm.BlockCSR)
+                  else (tb.indices, fibers))
+    return tks.block_coords(rows, cols, tb.shape, tb.block_shape, "cpu")
 
 
 def _run_both(family, ja, jb, ta, tb, js, ts):
@@ -210,13 +220,37 @@ def test_chunk_table_partitions_every_segment(block, family, variant, chunk):
     assert (slot[pieces[seg] == 1] == -1).all()
 
 
-def _walk_two_pass(a_data, b_data, walk, n_slots, out_grid, out_shape):
+def _in_place_blocks(b, coords, ldb):
+    """The kernels' in-place addressing of a dense B, in numpy: ``b`` laid
+    out in one flat buffer with rows ``ldb`` floats apart; B slot ``s`` is
+    the block that starts at ``rows[s]·bk·ldb + cols[s]·bn``, its rows past
+    K and columns past N loaded as zeros.  Returns slot -> (bk, bn) block."""
+    (k, n), (bk, bn) = coords.shape, coords.block_shape
+    flat = np.full(k * ldb, np.nan, np.float32)      # the gaps are never read
+    flat.reshape(k, ldb)[:, :n] = b
+    rows, cols = coords.rows.numpy(), coords.cols.numpy()
+
+    def block(s):
+        r0, c0 = int(rows[s]) * bk, int(cols[s]) * bn
+        out = np.zeros((bk, bn), np.float32)
+        for r in range(min(bk, k - r0)):
+            at = (r0 + r) * ldb + c0
+            out[r, :max(0, min(bn, n - c0))] = flat[at: at + min(bn, n - c0)]
+        return out
+
+    return block
+
+
+def _walk_two_pass(a_data, b_data, walk, n_slots, out_grid, out_shape,
+                   b_block=None):
     """A kernel's two passes in plain numpy over one walk, the tensors
     ``(a_slot, b_slot, chunk_start, chunk_seg, chunk_slot, split_seg,
     split_start, seg_ci, seg_cj)``: each chunk sums its entries in order; a
     segment of one chunk is its sum, a split one its chunks' workspace
-    slots summed in chunk order; pad runs dropped."""
+    slots summed in chunk order; pad runs dropped.  ``b_block`` (slot ->
+    block) reads B in place; by default B is the stack ``b_data``."""
     a, b = a_data.numpy(), b_data.numpy()
+    b_block = b_block or b.__getitem__
     (a_slot, b_slot, start, seg, slot, split_seg, split_start, ci,
      cj) = (t.numpy() for t in walk)
     mb, nb = out_grid
@@ -227,7 +261,7 @@ def _walk_two_pass(a_data, b_data, walk, n_slots, out_grid, out_shape):
     for ch in range(seg.size):
         acc = np.zeros((bm, bn), np.float32)
         for w in range(start[ch], start[ch + 1]):
-            acc += a[a_slot[w]] @ b[b_slot[w]]
+            acc += a[a_slot[w]] @ b_block(b_slot[w])
         if slot[ch] < 0:
             direct[seg[ch]] = acc
         else:
@@ -244,13 +278,13 @@ def _walk_two_pass(a_data, b_data, walk, n_slots, out_grid, out_shape):
     return c[: out_shape[0], : out_shape[1]]
 
 
-def _two_pass(a_data, b_data, ds, out_grid, out_shape):
+def _two_pass(a_data, b_data, ds, out_grid, out_shape, b_block=None):
     """K1's two passes over the schedule's own segments."""
     return _walk_two_pass(
         a_data, b_data,
         (ds.a_slot, ds.b_slot, ds.chunk_start, ds.chunk_seg, ds.chunk_slot,
          ds.split_seg, ds.split_start, ds.seg_ci, ds.seg_cj),
-        ds.n_slots, out_grid, out_shape)
+        ds.n_slots, out_grid, out_shape, b_block)
 
 
 @pytest.mark.parametrize("chunk", [1, 2, None])
@@ -260,7 +294,8 @@ def _two_pass(a_data, b_data, ds, out_grid, out_shape):
 def test_two_pass_emulation_matches_plain_and_pallas(block, family, variant,
                                                       chunk):
     """Chunk partials summed in chunk order equal ``stream_spmm_plain``
-    and the Pallas kernel in interpret mode to 1e-5."""
+    and the Pallas kernel in interpret mode to 1e-5; the same walk with B
+    read in place (rows wider than N, as in a view) gives the same bits."""
     a, b, ja, jb, ta, tb, js, ts = _variant_schedules(family, block, variant)
     ds = tks.device_schedule(ts, "cpu", chunk=chunk)
     if variant != "empty" and chunk == 1:
@@ -268,6 +303,9 @@ def test_two_pass_emulation_matches_plain_and_pallas(block, family, variant,
     grid = (ja.grid[0], jb.grid[1])
     shape = (ja.shape[0], jb.shape[1])
     got = _two_pass(ta.data, tb.data, ds, grid, shape)
+    in_place = _two_pass(ta.data, tb.data, ds, grid, shape,
+                         _in_place_blocks(b, _b_coords(tb), b.shape[1] + 3))
+    np.testing.assert_array_equal(in_place, got)
     plain = tks.stream_spmm_plain(ta.data, tb.data, ds, out_grid=grid,
                                   out_shape=shape)
     want = np.asarray(jks.stream_spmm(ja.data, jb.data, js, out_grid=grid,
@@ -366,14 +404,14 @@ def test_column_table_partitions_every_run(block, variant, chunk):
     assert (slot[pieces[seg] == 1] == -1).all()
 
 
-def _panel_two_pass(a_data, b_data, ds, out_grid, out_shape):
+def _panel_two_pass(a_data, b_data, ds, out_grid, out_shape, b_block=None):
     """K2's two passes over the column table."""
     c = ds.cols
     return _walk_two_pass(
         a_data, b_data,
         (c.a_slot, c.b_slot, c.chunk_start, c.chunk_seg, c.chunk_slot,
          c.split_seg, c.split_start, c.col_ci, c.col_cj),
-        c.n_slots, out_grid, out_shape)
+        c.n_slots, out_grid, out_shape, b_block)
 
 
 @pytest.mark.parametrize("chunk", [1, 2, None])
@@ -383,7 +421,7 @@ def test_panel_two_pass_emulation_matches_plain_and_pallas(block, variant,
                                                            chunk):
     """K2's walk of the column table, chunk partials summed in chunk
     order, equals ``stream_panel_spmm_plain`` and the Pallas kernel in
-    interpret mode to 1e-5."""
+    interpret mode to 1e-5; with B read in place, the same bits."""
     a, b, ja, jb, ta, tb, js, ts = _variant_schedules("gust", block, variant)
     ds = tks.device_schedule(ts, "cpu", chunk=chunk)
     if variant != "empty" and chunk == 1:
@@ -391,6 +429,10 @@ def test_panel_two_pass_emulation_matches_plain_and_pallas(block, variant,
     grid = (ja.grid[0], jb.grid[1])
     shape = (ja.shape[0], jb.shape[1])
     got = _panel_two_pass(ta.data, tb.data, ds, grid, shape)
+    in_place = _panel_two_pass(ta.data, tb.data, ds, grid, shape,
+                               _in_place_blocks(b, _b_coords(tb),
+                                                b.shape[1] + 3))
+    np.testing.assert_array_equal(in_place, got)
     plain = tks.stream_panel_spmm_plain(ta.data, tb.data, ds, out_grid=grid,
                                         out_shape=shape)
     want = np.asarray(jks.stream_panel_spmm(ja.data, jb.data, js,
@@ -426,3 +468,61 @@ def test_dest_schedule_has_no_column_table():
     for family in ("ip", "op"):
         *_, ts = _schedules(family, a, b, 8)
         assert tks.device_schedule(ts, "cpu").cols is None
+
+
+# -- B read in place -----------------------------------------------------------
+
+
+def _torch_schedule(family, a, b, block, variant):
+    """Torch operands and a device schedule alone (no JAX), as
+    ``_variant_schedules`` makes them."""
+    fa, fb, builder, by_dest = FAMILIES[family]
+    bs = (block, block)
+    ta = getattr(tfm, f"dense_to_{fa}")(a, bs, device="cpu")
+    tb = getattr(tfm, f"dense_to_{fb}")(b, bs, device="cpu")
+    tp = getattr(tdf, builder)(ta, tb)
+    ts = (tks.schedule_from_ip(tp) if by_dest is None
+          else tks.schedule_from_stream(tp, by_dest=by_dest))
+    if variant == "padded":
+        ts = tks.pad_schedule(ts, ts.n_work + 5, ts.n_runs + 3, ta.grid[0])
+    elif variant == "empty":
+        ts = tks._empty_schedule(ts.kind)
+    return ta, tb, tks.device_schedule(ts, "cpu", chunk=2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "row_view"])
+@pytest.mark.parametrize("variant", ["plain", "padded", "empty"])
+@pytest.mark.parametrize("family", ["ip", "op", "gust"])
+@pytest.mark.parametrize("m,k,n,block", [(37, 147, 70, 32),   # R0's K
+                                         (21, 147, 45, 16),
+                                         (19, 25, 21, 8)])
+def test_plain_kernels_read_dense_b_in_place(m, k, n, block, family,
+                                             variant, layout):
+    """K1's and K2's plain forms on the dense B with ``b_coords`` give the
+    stack form's bits: ragged K (147) and N, every schedule family, a
+    contiguous B and a view whose rows are wider than N."""
+    rng = np.random.default_rng(m + k + n + block)
+    a = jfm.random_sparse_dense(rng, (m, k), density=0.6,
+                                block_shape=(block, block))
+    b = jfm.random_sparse_dense(rng, (k, n), density=0.6,
+                                block_shape=(block, block))
+    ta, tb, ds = _torch_schedule(family, a, b, block, variant)
+    dense = torch.as_tensor(b)
+    if layout == "row_view":
+        wide = torch.full((k, n + 5), float("nan"))
+        wide[:, 2:n + 2] = dense
+        dense = wide[:, 2:n + 2]
+        assert dense.stride() == (n + 5, 1)
+    kw = dict(out_grid=(ta.grid[0], tb.grid[1]), out_shape=(m, n))
+    fn = tks.stream_panel_spmm if family == "gust" else tks.stream_spmm
+    stack = fn(ta.data, tb.data, ds, **kw)
+    got = fn(ta.data, dense, ds, b_coords=_b_coords(tb), **kw)
+    assert torch.equal(got, stack)
+    if variant != "empty":
+        np.testing.assert_allclose(got.numpy(), a @ b, **TOL)
+
+
+def test_block_coords_reject_slots_off_the_grid():
+    with pytest.raises(ValueError, match="outside"):
+        tks.block_coords(np.array([0, 5]), np.array([0, 0]), (147, 40),
+                         (32, 32), "cpu")
