@@ -3,7 +3,7 @@
 
 
 def read(ctx):
-    if not ctx.peaks or not ctx.steps:
+    if not ctx.peaks or not ctx.steps or ctx.flops_per_step is None:
         return None
     flops = ctx.flops_per_step * ctx.steps
     return 100.0 * flops / (ctx.window_s * ctx.peaks["fp32_flop_per_s"])

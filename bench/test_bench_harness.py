@@ -41,46 +41,109 @@ def run_tiny(seed=5):
                        traffic=tiny_traffic())
 
 
-def test_pieces_found_by_name():
-    for cell in SPEC["workloads"]:
-        cfg = harness.config_of(SPEC, cell)
-        assert harness.driver_of(cfg).Run
+CELLS = [c["name"] for c in SPEC["workloads"]]
+#: the per-layer metrics of the two accepted cells
+ACCEPTED = ("plan_s", "apply_host_us", "launches_per_step", "k1_ms_per_step",
+            "k2_ms_per_step", "spmm_roofline", "step_mfu", "idle_share",
+            "plan_pattern_s", "plan_select_s", "plan_tables_s",
+            "plan_prepare_s", "apply_us", "ingest_ms_per_step",
+            "dispatch_ms_per_step", "escape_ms_per_step", "host_idle_share")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+def check_pieces(spec, cell_name, root=harness.ROOT):
+    """The cell's pieces are found by name in the checkout at ``root``,
+    and its per-layer metrics are those whose ``workloads`` name it."""
+    cell = harness.cell_of(spec, cell_name)
+    cfg = harness.config_of(spec, cell, root)
+    assert harness.driver_of(cfg, root).Run
+    assert harness.traffic_of(cell["traffic"], root)
+    assert cfg["limits"] and all(isinstance(v, (int, float))
+                                 for v in cfg["limits"].values())
+    for t in (0, 1):
+        for m in harness.metrics_of(spec, cell_name, t):
+            assert callable(harness.reader_of(m["name"], root))
+    assert {m["name"] for m in harness.metrics_of(spec, cell_name, 1)} == {
+        m["name"] for m in spec["per_layer"] if cell_name in m["workloads"]}
+    assert harness.metrics_of(spec, cell_name, 0) == [
+        m for m in spec["end_to_end"]
+        if cell_name in m.get("workloads", [cell_name])]
+
+
+def check_contract_form(spec):
+    """What the contract asks of ``BENCHMARK.json``'s form."""
+    assert set(spec) == {"command", "paths", "run_seconds", "configs",
+                         "workloads", "end_to_end", "per_layer"}
+    assert spec["paths"] == ["bench"] and 1 <= spec["run_seconds"] <= 51
+    cells = {c["name"] for c in spec["workloads"]}
+    names = [x["name"] for x in itertools.chain(
+        spec["configs"], spec["workloads"], spec["end_to_end"],
+        spec["per_layer"])]
+    assert len(names) == len(set(names))
+    assert all(NAME.match(n) for n in names)
+    used = {w["config"] for w in spec["workloads"]}
+    for c in spec["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["file"].startswith("bench/") and len(c["source"]) <= 200
+        assert c["name"] in used
+    for w in spec["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    assert sum(w["chips"] == 4 for w in spec["workloads"]) <= max(
+        1, len(spec["workloads"]) // 4)
+    e2e = {m["name"] for m in spec["end_to_end"]}
+    assert "setup_s" in e2e
+    for m in spec["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+    for m in spec["per_layer"]:
+        # each per-layer metric names its cells, and each of them reports
+        # the end-to-end metric it moves
+        assert m["workloads"] and set(m["workloads"]) <= cells
+        assert m["moves"] in e2e
+        for cell in m["workloads"]:
+            assert m["moves"] in {x["name"] for x in harness.metrics_of(
+                spec, cell, 0)}
+        assert m["source"] in ("device_trace", "program_span",
+                               "program_counter", "host_clock")
+    for cell in cells:
+        assert harness.metrics_of(spec, cell, 1)
+
+
+def check_accepted(spec):
+    """The accepted cells' metrics, pinned by name: facts about those
+    metrics, not about every metric a later cell adds."""
+    per = {m["name"]: m for m in spec["per_layer"]}
+    assert set(ACCEPTED) <= set(per)
+
+    def reads(cell):
+        return {m["name"] for m in harness.metrics_of(spec, cell, 1)} & set(
+            ACCEPTED)
+
+    assert reads("distilbert.b64") == set(ACCEPTED) - {"k2_ms_per_step"}
+    assert reads("resnet50.b128") == set(ACCEPTED) - {"escape_ms_per_step"}
+    assert per["k2_ms_per_step"]["workloads"] == ["resnet50.b128"]
+    assert per["escape_ms_per_step"]["workloads"] == ["distilbert.b64"]
+    for name in ("distilbert.b64", "resnet50.b128"):
+        cell = harness.cell_of(spec, name)
+        assert cell["chips"] == 1
+        assert "max_rel_err" in harness.config_of(spec, cell)["limits"]
         assert harness.traffic_of(cell["traffic"])["samples_per_step"] > 0
-        assert "max_rel_err" in cfg["limits"]
-    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
-        assert callable(harness.reader_of(m["name"]))
-    assert {m["name"] for m in harness.metrics_of(
-        SPEC, "distilbert.b64", 1)} == {
-        m["name"] for m in SPEC["per_layer"]} - {"k2_ms_per_step"}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_pieces_found_by_name(cell):
+    check_pieces(SPEC, cell)
+
+
+def test_accepted_cells_keep_their_metrics():
+    check_accepted(SPEC)
 
 
 def test_spec_keeps_the_contract_form():
-    assert set(SPEC) == {"command", "paths", "run_seconds", "configs",
-                         "workloads", "end_to_end", "per_layer"}
-    assert SPEC["paths"] == ["bench"] and 1 <= SPEC["run_seconds"] <= 51
-    cells = {c["name"] for c in SPEC["workloads"]}
-    names = [x["name"] for x in itertools.chain(
-        SPEC["configs"], SPEC["workloads"], SPEC["end_to_end"],
-        SPEC["per_layer"])]
-    assert len(names) == len(set(names))
-    assert all(NAME.match(n) for n in names)
-    for c in SPEC["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert c["file"].startswith("bench/") and len(c["source"]) <= 200
-    for w in SPEC["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
-    e2e = {m["name"] for m in SPEC["end_to_end"]}
-    assert "setup_s" in e2e
-    for m in SPEC["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25
-        assert m["source"] in ("host_clock", "device_trace")
-    for m in SPEC["per_layer"]:
-        assert m["moves"] in e2e and set(m["workloads"]) <= cells
-        assert m["source"] in ("device_trace", "program_span",
-                               "program_counter", "host_clock")
-    k2 = [m for m in SPEC["per_layer"] if m["name"] == "k2_ms_per_step"]
-    assert k2[0]["workloads"] == ["resnet50.b128"]
+    check_contract_form(SPEC)
 
 
 def test_block_pattern_places_exactly_its_blocks():
@@ -116,6 +179,7 @@ def test_product_work_against_brute_force(shape):
 def test_bound_and_peaks():
     peaks = work.peaks_for("NVIDIA H100 80GB HBM3")
     assert peaks["fp32_flop_per_s"] == 67e12
+    assert peaks["bf16_flop_per_s"] == 989.4e12
     assert peaks["hbm_bytes_per_s"] == 3.35e12
     assert work.bound_s(67e12, 0, peaks) == 1.0
     assert work.bound_s(0, 6.7e12, peaks) == 2.0
@@ -311,3 +375,138 @@ def test_setup_is_the_same_work_for_every_seed():
         dense = x.b_sets[0].abs() > 0
         assert math.isclose(float(dense.float().mean()),
                             float((x.b_sets[1].abs() > 0).float().mean()))
+
+
+def test_readers_given_none_return_none():
+    """A driver without the plan API's notions hands the readers None."""
+    ctx = _ctx(plan_s=None, flops_per_step=None, bound_s_per_step=None)
+    for name in ("plan_s", "spmm_roofline", "step_mfu"):
+        assert harness.reader_of(name)(ctx) is None
+
+
+#: a second driver, as a later cell would add it: new files only
+TOY_DRIVER = '''"""A toy driver: each step sums the rows of a seeded matrix."""
+import time
+
+import torch
+
+
+class Run:
+    def __init__(self, cfg, traffic, seed, device):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed % 2 ** 63)
+        self.rows, self.short = traffic["rows"], cfg["short"]
+        self.x = torch.randn(self.rows, cfg["width"], generator=gen,
+                             device=device)
+        self.kept = {}
+
+    def window(self, seconds):
+        step_ms, steps, t0 = [], 0, time.perf_counter()
+        while steps < 2 or time.perf_counter() - t0 < seconds:
+            t = time.perf_counter()
+            self.kept[steps % 2] = self.x[:self.rows - self.short].sum(1)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            steps += 1
+        return {"steps": steps, "samples": steps * self.rows,
+                "window_s": time.perf_counter() - t0, "step_ms": step_ms}
+
+    def trace(self):
+        return None
+
+    def free_program(self):
+        pass
+
+    def check(self):
+        ref = self.x.double().sum(1)
+        per = {j: {"rows_short": float(self.rows - out.numel()),
+                   "max_abs_err": float((out.double()
+                                         - ref[:out.numel()]).abs().max())}
+               for j, out in self.kept.items()}
+        worst = {n: max(p[n] for p in per.values()) for n in
+                 ("max_abs_err", "rows_short")}
+        return worst, "the row sums", per
+'''
+TOY_METRIC = '''"""toy_rows_per_step: rows a step sums, read from the run."""
+
+
+def read(ctx):
+    ctx.breakdown = {"device_ops": [["toy/sum", 1e-3]], "idle_gaps": []}
+    return ctx.run.rows
+'''
+
+
+@pytest.fixture
+def toy_checkout(tmp_path):
+    """A checkout of the benchmark with a cell of a second driver added as
+    new files: a driver, its configuration, its traffic and a per-layer
+    metric that names only its cell; returns (root, spec)."""
+    import copy
+    import shutil
+
+    shutil.copytree(HERE, tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = tmp_path / "bench"
+    (bench / "drivers" / "toy_rows.py").write_text(TOY_DRIVER)
+    (bench / "metrics" / "toy_rows_per_step.py").write_text(TOY_METRIC)
+    (bench / "traffic" / "t8.json").write_text(json.dumps({"rows": 8}))
+    (bench / "configs" / "toy.json").write_text(json.dumps(
+        {"name": "toy", "driver": "toy_rows", "width": 16, "short": 0,
+         "limits": {"max_abs_err": 1e-4, "rows_short": 0}}))
+    spec = copy.deepcopy(SPEC)
+    spec["configs"].append({"name": "toy", "source": "https://example.org",
+                            "file": "bench/configs/toy.json", "reduced": [],
+                            "why": "a second driver"})
+    spec["workloads"].append({"name": "toy.t8", "config": "toy",
+                              "traffic": "t8", "chips": 1,
+                              "why": "8 rows a step"})
+    spec["per_layer"].append({"name": "toy_rows_per_step", "unit": "rows",
+                              "better": "higher",
+                              "source": "program_counter", "layer": "toy",
+                              "moves": "samples_per_s",
+                              "workloads": ["toy.t8"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    return tmp_path, harness.load_spec(tmp_path)
+
+
+def test_a_second_driver_joins_as_new_files(toy_checkout):
+    root, spec = toy_checkout
+    toy = spec["per_layer"][-1]
+    assert harness.metrics_of(spec, "toy.t8", 1) == [toy]
+    assert harness.metrics_of(spec, "toy.t8", 0) == spec["end_to_end"]
+    check_contract_form(spec)
+    for cell in spec["workloads"]:
+        check_pieces(spec, cell["name"], root)
+    check_accepted(spec)
+    for cell in CELLS:
+        for t in (0, 1):
+            assert harness.metrics_of(spec, cell, t) == harness.metrics_of(
+                SPEC, cell, t)
+    for t, names in ((0, {"setup_s", "samples_per_s", "step_ms_p95"}),
+                     (1, {"toy_rows_per_step"})):
+        result, lines = harness.run(spec, "toy.t8", 2 ** 31 + 13, 0.05, t,
+                                    "cpu", time.perf_counter(), root=root)
+        assert result["correct"] and result["failed"] == 0, lines
+        assert set(result["metrics"]) == names
+        assert list(result)[-1] == "checks"
+        assert result["checks"]["rows_short"] == {"value": 0.0, "limit": 0}
+        assert result["checks"]["max_abs_err"]["value"] < 1e-4
+        assert lines[-2].startswith("max_abs_err ")
+        assert lines[-1] == "rows_short 0.0 limit 0"
+    # the reader had the run, and the breakdown it left is the result's
+    assert result["metrics"]["toy_rows_per_step"]["value"] == 8
+    assert result["breakdown"] == {"device_ops": [["toy/sum", 1e-3]],
+                                   "idle_gaps": []}
+
+
+def test_a_second_drivers_check_fails_a_broken_run(toy_checkout):
+    """One of the driver's two numbers over its limit: not correct, and
+    every checked step failed."""
+    root, spec = toy_checkout
+    cfg = json.loads((root / "bench" / "configs" / "toy.json").read_text())
+    result, lines = harness.run(spec, "toy.t8", 7, 0.05, 0, "cpu",
+                                time.perf_counter(), cfg=dict(cfg, short=1),
+                                root=root)
+    assert not result["correct"] and result["failed"] == 2
+    assert result["checks"]["rows_short"] == {"value": 1.0, "limit": 0}
+    assert result["checks"]["max_abs_err"]["value"] < 1e-4
+    assert lines[-1] == "rows_short 1.0 limit 0"

@@ -124,7 +124,8 @@ def _records(base_ns):
         t0 = int(s * 1e3) - unix + mono + base_ns
         out.append(SpanRecord(name, t0, int((e - s) * 1e3), tid, sid,
                               None if sid == 1 else 1,
-                              {"route": "k1"} if sid == 1 else {}))
+                              {"route": "k1", "b_ingest": "in_place"}
+                              if sid == 1 else {}))
     return out
 
 
@@ -135,6 +136,7 @@ def test_summarize_reads_the_program_spans():
                        applies_per_step=1)
     assert got["apply_us"] == pytest.approx(100.0)
     assert got["routes"] == {"k1": 1}
+    assert got["b_ingest"] == {"in_place": 1}
     assert got["ingest_ms"] == pytest.approx(0.040)
     # the fp32 copy and the zeroed output, not K1
     assert got["dispatch_ms"] == pytest.approx(0.012)
@@ -235,8 +237,7 @@ def test_a_failing_second_span_is_printed_not_raised(capsys):
         def launches(self):
             raise RuntimeError("no device")
 
-    run_ = Broken()  # noqa: F841 — found by name, as in harness.run
-    ctx = SimpleNamespace(trace={"steps": 2})
+    ctx = SimpleNamespace(trace={"steps": 2}, run=Broken())
     assert harness.reader_of("apply_us")(ctx) is None
     assert "RuntimeError: no device" in capsys.readouterr().err
     # once per run: the second reader reads the kept answer
@@ -283,7 +284,8 @@ class _FakeRun:
         from repro_torch import obs
 
         for _ in range(count):
-            with obs.span("plan.apply", dataflow="ip_m", route="k1"):
+            with obs.span("plan.apply", dataflow="ip_m", route="k1",
+                          b_ingest="in_place"):
                 with obs.span("plan.apply.launch"):
                     self.times.append(obs.now_ns())
             self.launched += 1
@@ -328,15 +330,16 @@ def _fake_profile(run, lose_first, shift_us=0.0, stray_us=0.0):
 
 @pytest.mark.parametrize("lose_first", [False, True])
 def test_extra_spans_end_to_end(monkeypatch, capsys, lose_first):
-    """The two extra spans on a fake run: the program's spans join its
-    launches, the breakdown is named by span, and a span that lost
-    operations is taken again."""
+    """The two extra spans on a fake run, handed over on ``ctx.run``: the
+    program's spans join its launches, the breakdown is named by span and
+    left on ``ctx.breakdown``, and a span that lost operations is taken
+    again."""
     run_ = _FakeRun()
     monkeypatch.setattr(pt, "profile", _fake_profile(run_, lose_first))
     ctx = SimpleNamespace(
         trace={"steps": 2, "ops": {"stream_dest_kernel": 4e-6},
                "window_s": 1e-3, "device_ops": [], "idle_gaps": []},
-        apply_s=1e-3, applies=10)
+        apply_s=1e-3, applies=10, run=run_)
     got = pt.of(ctx)
     err = capsys.readouterr().err
     assert ("span 1 of 3 (tracing off) lost operations" in err) == lose_first
@@ -345,10 +348,12 @@ def test_extra_spans_end_to_end(monkeypatch, capsys, lose_first):
     assert p["routes"] == {"k1": 1.0}
     assert p["k1_ms"] == pytest.approx(0.002)
     assert p["unattributed_s"] == 0 and p["stream_outside_launch"] == 0
-    [[name, seconds]] = ctx.trace["device_ops"]
+    [[name, seconds]] = ctx.breakdown["device_ops"]
     assert name == "plan.apply.launch/stream_dest_kernel"
     assert seconds == pytest.approx(4e-6)
-    assert "program trace: applies a step by route {'k1': 1.0}" in err
+    assert ctx.trace["device_ops"] == []
+    assert ("program trace: applies a step by route {'k1': 1.0}, by "
+            "b_ingest {'in_place': 1.0}") in err
     assert harness.reader_of("apply_us")(ctx) == p["apply_us"] > 0
 
 
@@ -367,12 +372,12 @@ def test_a_join_that_lost_attribution_is_no_reading(monkeypatch, capsys,
     ctx = SimpleNamespace(
         trace={"steps": 2, "ops": {"stream_dest_kernel": 4e-6},
                "window_s": 1e-3, "device_ops": [], "idle_gaps": []},
-        apply_s=1e-3, applies=10)
+        apply_s=1e-3, applies=10, run=run_)
     got = pt.of(ctx)
     err = capsys.readouterr().err
     assert "program trace: the join did not hold (" + fault in err
     assert got["program"] is None and got["host_idle_share"] is not None
-    assert ctx.trace["device_ops"] == [] and ctx.trace["idle_gaps"] == []
+    assert not hasattr(ctx, "breakdown")
     for name in ("apply_us", "ingest_ms_per_step", "dispatch_ms_per_step",
                  "escape_ms_per_step"):
         assert harness.reader_of(name)(ctx) is None

@@ -53,14 +53,16 @@ def product_work(occ_a, occ_b, shape, block):
 
 
 def bound_s(flops, nbytes, peaks):
-    """Least time the chip could take: the larger of the two terms."""
+    """Least time the chip could take on fp32 products outside the tensor
+    cores: the larger of the two terms."""
     return max(flops / peaks["fp32_flop_per_s"],
                nbytes / peaks["hbm_bytes_per_s"])
 
 
 def peaks_for(kind):
-    """The published peaks of the card named ``kind`` (``peaks.json``);
-    None for a card the table does not hold."""
+    """The published peaks of the card named ``kind`` (``peaks.json``):
+    ``fp32_flop_per_s``, ``bf16_flop_per_s`` (dense, on the tensor cores)
+    and ``hbm_bytes_per_s``; None for a card the table does not hold."""
     table = json.loads((HERE / "peaks.json").read_text())
     for entry in table["cards"]:
         if entry["match"] in kind:
