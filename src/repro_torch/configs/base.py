@@ -4,14 +4,18 @@ Every ported architecture is one :class:`ModelConfig` instance in
 ``configs/<id>.py`` (exact, from the public literature) plus a reduced
 ``SMOKE`` variant of the same family for CPU tests.  The dataclasses are
 field-for-field copies of ``repro.configs.base``, so a config means the same
-model in both packages.
+model in both packages, but for one field of the port's own:
+``ModelConfig.scales`` (:class:`Scales`), the muP scalars some published
+models multiply their embedding, attention scores, residual branches and
+logits by, which the JAX package's config does not carry.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["ModelConfig", "MoEConfig", "LayerPattern", "TrainConfig",
+__all__ = ["ModelConfig", "MoEConfig", "LayerPattern", "Scales",
+           "TrainConfig",
            "SHAPES", "ShapeSpec", "REGISTRY", "register", "get_config"]
 
 
@@ -50,6 +54,23 @@ class LayerPattern:
 
 
 @dataclasses.dataclass(frozen=True)
+class Scales:
+    """The muP scalars of a published model (granite's ``config.json``:
+    ``embedding_multiplier``, ``attention_multiplier``,
+    ``residual_multiplier``, ``logits_scaling``).
+
+    The embedding's output is multiplied by ``embedding``; attention's
+    softmax takes its scores times ``attention`` (in place of
+    1/sqrt(head_dim)); each residual branch is multiplied by ``residual``
+    before it is added; the logits are divided by ``logits``."""
+
+    embedding: float = 1.0
+    attention: Optional[float] = None
+    residual: float = 1.0
+    logits: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense | moe | hybrid | ssm | vlm | audio
@@ -84,6 +105,9 @@ class ModelConfig:
     #: context/sequence parallelism: shard activations' sequence dim over
     #: the "model" axis (beyond-paper optimization; see EXPERIMENTS §Perf)
     context_parallel: bool = False
+    #: the port's own field (the JAX config has none): the model's muP
+    #: scalars, or None for none (every product as the JAX package has it)
+    scales: Optional[Scales] = None
 
     @property
     def kv_heads(self) -> int:

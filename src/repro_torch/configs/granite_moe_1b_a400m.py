@@ -3,8 +3,14 @@
 24L d_model=1024 16H (GQA kv=8) d_ff=512/expert vocab=49155, MoE 32e top-8.
 The paper's technique is directly applicable: MoE dispatch runs the
 three-dataflow selectable path (32 experts, fine-grained).
+
+The published model also scales its embedding (x12), its attention scores
+(0.015625 in place of 1/sqrt(64)), each residual branch (x0.22) and its
+logits (/6), and takes RMSNorm's epsilon as 1e-6: the full config carries
+them (``scales``, the port's own field).  The smoke config keeps the JAX
+package's, so the CPU tests against it compare the shared code.
 """
-from .base import ModelConfig, MoEConfig, register
+from .base import ModelConfig, MoEConfig, Scales, register
 
 CONFIG = register(
     ModelConfig(
@@ -20,6 +26,9 @@ CONFIG = register(
         moe=MoEConfig(num_experts=32, top_k=8, pattern="all",
                       strategy="einsum"),
         tie_embeddings=True,
+        norm_eps=1e-6,
+        scales=Scales(embedding=12.0, attention=0.015625, residual=0.22,
+                      logits=6.0),
     ),
     smoke=ModelConfig(
         name="granite-moe-1b-a400m",

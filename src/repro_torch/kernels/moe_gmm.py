@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from .. import obs
 from . import build
 
 __all__ = ["IDLE", "GmmLaunch", "GroupedMatmul", "WgradLaunch", "gmm",
@@ -272,6 +273,8 @@ class GroupedMatmul(torch.autograd.Function):
       group with no rows, in ``w``'s dtype;
     - no gradient for ``group_ids`` or the tiling.
 
+    Both products run inside the span ``moe.experts.backward``.
+
     ``dy`` is taken in the operands' dtype for both products.  A CUDA
     tensor never reaches a plain version: each product launches its kernel
     or raises.
@@ -288,13 +291,14 @@ class GroupedMatmul(torch.autograd.Function):
         x, w, group_ids = ctx.saved_tensors
         bm, bk, bn = ctx.tiling
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = _k3(dy.to(w.dtype).contiguous(),
-                     w.transpose(1, 2).contiguous(), group_ids, bm, bn, bk,
-                     x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = _k3w(x, dy.to(x.dtype).contiguous(), group_ids,
-                      w.shape[0], bm, w.dtype)
+        with obs.span("moe.experts.backward"):
+            if ctx.needs_input_grad[0]:
+                dx = _k3(dy.to(w.dtype).contiguous(),
+                         w.transpose(1, 2).contiguous(), group_ids, bm, bn,
+                         bk, x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _k3w(x, dy.to(x.dtype).contiguous(), group_ids,
+                          w.shape[0], bm, w.dtype)
         return dx, dw, None, None, None, None, None
 
 

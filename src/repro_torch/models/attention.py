@@ -7,6 +7,9 @@ blocks with a running (max, denominator) softmax in fp32; Python loops take
 the place of ``lax.map``/``lax.scan``.  Score and value products take bf16
 inputs widened to fp32, as JAX's ``preferred_element_type=float32``.
 
+The softmax takes the scores times 1/sqrt(head_dim), or times a config's
+``scales.attention`` where it has scales (:func:`softmax_scale`).
+
 Decode and prefill write K/V into the cache tensors in place and return
 them: the serving engine replaces its cache with the returned one, as it
 does in JAX, and keeps no copy of the old one.
@@ -23,10 +26,13 @@ from ..sharding.act import is_dtensor, merge_heads, shard, split_heads
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "AttnCache",
-           "init_attn_cache", "blockwise_attention", "write_rows",
-           "write_slot"]
+           "init_attn_cache", "blockwise_attention", "softmax_scale",
+           "write_rows", "write_slot"]
 
 NEG_INF = -1e30
+#: :func:`blockwise_attention`'s query rows a block with gradients off, and
+#: with them on
+BLOCK_Q, BLOCK_Q_GRAD = 512, 4096
 
 
 class AttnCache(NamedTuple):
@@ -46,6 +52,12 @@ def attn_init(gen: torch.Generator, cfg, dtype=torch.float32):
         p["qnorm"] = rmsnorm_init(dh, dtype, gen.device)
         p["knorm"] = rmsnorm_init(dh, dtype, gen.device)
     return p
+
+
+def softmax_scale(cfg) -> Optional[float]:
+    """The config's attention scale (``scales.attention``), or None for
+    1/sqrt(head_dim)."""
+    return None if cfg.scales is None else cfg.scales.attention
 
 
 def _project_qkv(p, cfg, x, positions):
@@ -71,14 +83,28 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, q_offset: int = 0,
-                        block_q: int = 512, block_k: int = 1024,
-                        gqa_native: bool = False) -> torch.Tensor:
+                        block_q: Optional[int] = None, block_k: int = 1024,
+                        gqa_native: bool = False,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Flash-style attention in plain PyTorch.
 
     q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh) with Hq a multiple of Hkv.
     ``gqa_native=False`` repeats K/V to Hq heads, ``True`` groups query heads
     against their kv head; ``q_offset`` positions the queries in the key
-    timeline; ``window`` enables sliding-window attention.
+    timeline; ``window`` enables sliding-window attention; ``scale``
+    multiplies the scores (None: 1/sqrt(Dh)).
+
+    ``block_q`` (None: :data:`BLOCK_Q_GRAD` rows with gradients on, else
+    :data:`BLOCK_Q`) sets the query rows of a block.  Each (query block,
+    key block) pair costs about twenty launches, and as many again in its
+    backward and in its recomputation under remat.  With gradients off
+    only one block's scores are live at a time, so small blocks keep a
+    prefill's peak low; with gradients on autograd keeps every block's
+    scores for the backward whatever the block, so larger blocks add
+    little to the peak, and a training step over
+    4,096-token sequences in 512-row blocks launched ~95k operations and
+    the host paced the card, where 4,096-row blocks launch an eighth of
+    them.
     """
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
@@ -88,8 +114,10 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
         hkv = h
     n_rep = h // hkv
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     dev = q.device
+    if block_q is None:
+        block_q = BLOCK_Q_GRAD if torch.is_grad_enabled() else BLOCK_Q
     block_q = min(block_q, sq)
     block_k = min(block_k, sk)
     nq = -(-sq // block_q)
@@ -190,7 +218,8 @@ def attn_apply(p, cfg, x, positions, *, window: Optional[int] = None,
         causal = False
     else:
         q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _attend(q, k, v, causal=causal, window=window)
+    out = _attend(q, k, v, causal=causal, window=window,
+                  scale=softmax_scale(cfg))
     return dense(p["wo"], merge_heads(out))
 
 
@@ -322,7 +351,9 @@ def attn_decode(p, cfg, x, pos, cache: AttnCache, *,
     q = _placed_as_cache(q, cache.k)
     qg = q.reshape(b, 1, hkv, n_rep, dh)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
-                          cache.k.float()) / math.sqrt(dh)
+                          cache.k.float())
+    scale = softmax_scale(cfg)
+    scores = scores / math.sqrt(dh) if scale is None else scores * scale
     idx = torch.arange(s_max, device=x.device)
     pos_b = pos[:, None, None, None, None]
     if window is not None:

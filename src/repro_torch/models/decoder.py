@@ -9,7 +9,9 @@ one parameter dict (and one cache dict) per layer, walked by a loop.
 onto it.
 
 A block is (pre-norm mixer → residual → pre-norm ffn → residual); the rwkv
-block replaces attention/FFN with time-mix/channel-mix.  With gradients
+block replaces attention/FFN with time-mix/channel-mix.  A config with
+``scales`` multiplies each residual branch by ``scales.residual`` before
+it is added (:func:`_branch`), on every path.  With gradients
 on, :func:`stack_apply` checkpoints each period of the stack, as JAX's
 ``jax.checkpoint`` wraps its scanned body (:func:`checkpointed`).  Prefill and
 decode write each layer's new state into its cache tensors in place.  The
@@ -27,6 +29,7 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import obs
 from ..sharding.act import merge_heads, shard
 from . import attention as attn
 from . import ffn as ffn_mod
@@ -71,6 +74,12 @@ def _block_init(gen: torch.Generator, cfg, sig: Signature,
     return p
 
 
+def _branch(cfg, h):
+    """A residual branch's output as it is added: times the config's
+    ``scales.residual`` where it has scales."""
+    return h if cfg.scales is None else h * cfg.scales.residual
+
+
 def _window(cfg, mixer: str) -> Optional[int]:
     return cfg.swa_window if mixer == "swa" else None
 
@@ -94,21 +103,22 @@ def _block_apply(p, cfg, sig: Signature, x, positions, valid=None):
     if mixer == "rwkv":
         h, _, _ = rwkv_mod.rwkv_time_mix(
             p["mixer"], cfg, rmsnorm(p["norm1"], x, cfg.norm_eps))
-        x = x + h
+        x = x + _branch(cfg, h)
         h, _ = rwkv_mod.rwkv_channel_mix(
             p["mixer"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps))
-        return x + h
+        return x + _branch(cfg, h)
     xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer in ("attn", "swa"):
-        h = attn.attn_apply(p["mixer"], cfg, xn, positions,
-                            window=_window(cfg, mixer))
+        with obs.span("block.attn"):
+            h = attn.attn_apply(p["mixer"], cfg, xn, positions,
+                                window=_window(cfg, mixer))
     elif mixer == "mamba":
         h = mamba_mod.mamba_apply(p["mixer"], cfg, xn)
     else:
         raise ValueError(mixer)
-    x = x + h
+    x = x + _branch(cfg, h)
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, ffn, xn, valid)
+    return x + _branch(cfg, _ffn(p, cfg, ffn, xn, valid))
 
 
 def init_layer_cache(cfg, sig: Signature, batch: int, max_seq: int,
@@ -139,17 +149,18 @@ def _block_prefill(p, cfg, sig: Signature, x, positions, cache):
     if mixer == "rwkv":
         xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
         h, state, last_t = rwkv_mod.rwkv_time_mix(p["mixer"], cfg, xn)
-        x = x + h
+        x = x + _branch(cfg, h)
         xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
         h, last_c = rwkv_mod.rwkv_channel_mix(p["mixer"], cfg, xn)
-        return x + h, _write(cache, state=state, shift_t=last_t,
-                             shift_c=last_c)
+        return x + _branch(cfg, h), _write(cache, state=state,
+                                           shift_t=last_t, shift_c=last_c)
     xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer in ("attn", "swa"):
         s = x.shape[1]
         cache_len = cache["k"].shape[1]
         q, k, v = attn._project_qkv(p["mixer"], cfg, xn, positions)
-        h = attn._attend(q, k, v, causal=True, window=_window(cfg, mixer))
+        h = attn._attend(q, k, v, causal=True, window=_window(cfg, mixer),
+                         scale=attn.softmax_scale(cfg))
         h = dense(p["mixer"]["wo"], merge_heads(h))
         kk, vv = k[:, -cache_len:], v[:, -cache_len:]
         slots = positions[-kk.shape[1]:] % cache_len
@@ -163,9 +174,9 @@ def _block_prefill(p, cfg, sig: Signature, x, positions, cache):
         _write(cache, conv=conv, ssm=ssm)
     else:
         raise ValueError(mixer)
-    x = x + h
+    x = x + _branch(cfg, h)
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, ffn, xn), cache
+    return x + _branch(cfg, _ffn(p, cfg, ffn, xn)), cache
 
 
 def _block_decode(p, cfg, sig: Signature, x, pos, cache):
@@ -175,11 +186,11 @@ def _block_decode(p, cfg, sig: Signature, x, pos, cache):
                                cache["shift_c"])
         xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
         h, state, last_t = rwkv_mod.rwkv_time_decode(p["mixer"], cfg, xn, c)
-        x = x + h
+        x = x + _branch(cfg, h)
         xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
         h, last_c = rwkv_mod.rwkv_channel_decode(p["mixer"], cfg, xn, c)
-        return x + h, _write(cache, state=state, shift_t=last_t,
-                             shift_c=last_c)
+        return x + _branch(cfg, h), _write(cache, state=state,
+                                           shift_t=last_t, shift_c=last_c)
     xn = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer in ("attn", "swa"):
         h, c = attn.attn_decode(p["mixer"], cfg, xn, pos,
@@ -195,9 +206,9 @@ def _block_decode(p, cfg, sig: Signature, x, pos, cache):
         _write(cache, conv=c.conv, ssm=c.ssm)
     else:
         raise ValueError(mixer)
-    x = x + h
+    x = x + _branch(cfg, h)
     xn = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, ffn, xn), cache
+    return x + _branch(cfg, _ffn(p, cfg, ffn, xn)), cache
 
 
 # ---------------------------------------------------------------------------

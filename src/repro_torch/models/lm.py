@@ -8,6 +8,10 @@ Mamba/attention, RWKV, early-fusion VLM — all token-frontend), and
 A model lives on one device: ``build_model(cfg)`` puts it on the card,
 ``build_model(cfg, device="cpu")`` on the CPU.  Token inputs may be numpy
 arrays or tensors.
+
+A config with ``scales`` (:class:`repro_torch.configs.base.Scales`, a
+model's muP scalars) multiplies the embedding's output and divides the
+logits on every path: training, prefill and decode.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Dict
 
 import torch
 
+from .. import obs
 from ..config import resolve_device
 from ..sharding.act import grad_placed, shard
 from . import decoder
@@ -64,6 +69,11 @@ class LM:
         return p
 
     # -- forward -----------------------------------------------------------
+    def _embed(self, params, tokens):
+        x = embedding_lookup(params["embed"], tokens)
+        scales = self.cfg.scales
+        return x if scales is None else x * scales.embedding
+
     def _logits_from_h(self, params, h):
         h = rmsnorm(params["final_norm"], h, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
@@ -71,6 +81,8 @@ class LM:
                 h, grad_placed(params["embed"]["table"]).to(h.dtype).T)
         else:
             logits = dense(params["lm_head"], h, split_out=True)
+        if self.cfg.scales is not None:
+            logits = logits / self.cfg.scales.logits
         # vocab dim TP-sharded: the softmax/xent reduce over "model"
         return shard(logits, "dp", None, "model")
 
@@ -79,18 +91,23 @@ class LM:
         only with gradients on; see :func:`decoder.checkpointed`.
         ``valid`` (B, S): 0 at the tokens of a padding row (a microbatch
         padded over the data ranks), which take no MoE capacity."""
+        return self._logits_from_h(
+            params, self._hidden(params, tokens, remat, valid))
+
+    def _hidden(self, params, tokens, remat, valid):
+        """The stack's output (before the final norm) over ``tokens``."""
         tokens = self._tokens(tokens)
-        x = shard(embedding_lookup(params["embed"], tokens), "dp", None, None)
+        x = shard(self._embed(params, tokens), "dp", None, None)
         positions = torch.arange(tokens.shape[1], device=self.device)
-        x = decoder.stack_apply(params["blocks"], self.cfg, x, positions,
-                                remat, valid)
-        return self._logits_from_h(params, x)
+        return decoder.stack_apply(params["blocks"], self.cfg, x, positions,
+                                   remat, valid)
 
     def loss(self, params, batch, remat=True):
-        logits = self.logits(params, batch["tokens"], remat,
-                             batch.get("valid"))
-        loss = _cross_entropy(logits, self._tokens(batch["targets"]),
-                              batch.get("mask"))
+        h = self._hidden(params, batch["tokens"], remat, batch.get("valid"))
+        with obs.span("lm.head_loss"):
+            logits = self._logits_from_h(params, h)
+            loss = _cross_entropy(logits, self._tokens(batch["targets"]),
+                                  batch.get("mask"))
         return loss, {"loss": loss}
 
     # -- serving -----------------------------------------------------------
@@ -104,7 +121,7 @@ class LM:
         """Prefill ``tokens`` (B, S) into ``cache`` (its tensors are written
         in place); returns the last position's logits and the cache."""
         tokens = self._tokens(tokens)
-        x = embedding_lookup(params["embed"], tokens)
+        x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=self.device)
         x, layers = decoder.stack_prefill(params["blocks"], self.cfg, x,
                                           positions, cache["layers"])
@@ -116,7 +133,7 @@ class LM:
     def decode_step(self, params, cache, tokens):
         """tokens: (B, 1) — one new token per sequence."""
         pos = cache["pos"]
-        x = embedding_lookup(params["embed"], self._tokens(tokens))
+        x = self._embed(params, self._tokens(tokens))
         x, layers = decoder.stack_decode(params["blocks"], self.cfg, x, pos,
                                          cache["layers"])
         logits = self._logits_from_h(params, x)

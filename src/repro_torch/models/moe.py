@@ -26,6 +26,10 @@ JAX's through ``ragged_dot``.  The combine is deterministic: each token's k
 weighted expert outputs are gathered through the inverse of the sort and
 added one by one in the order JAX's scatter-add applies them (ascending
 expert), in the activations' dtype.
+
+The sort dispatch opens the spans ``moe.route`` (router and top-k),
+``moe.permute`` (leader sort, gather, padding), ``moe.experts`` (the three
+K3 calls) and ``moe.combine`` (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels.moe_gmm import gmm, pad_groups_device
 from ..sharding.act import is_dtensor, shard, sum_over_ranks
 from .layers import dense_init, normal
@@ -302,7 +307,8 @@ def _moe_sort(p, cfg, x2d, bm: int = SORT_BM):
     if is_dtensor(x2d):
         return _moe_local(p, cfg, x2d, functools.partial(_sort_dispatch,
                                                          bm=bm))
-    gates, experts, _ = _router(p, x2d, cfg.moe.top_k)
+    with obs.span("moe.route"):
+        gates, experts, _ = _router(p, x2d, cfg.moe.top_k)
     return _sort_dispatch(x2d, gates, experts, _weights(p, x2d.dtype),
                           cfg.moe.num_experts, bm)
 
@@ -313,40 +319,44 @@ def _sort_dispatch(x2d, gates, experts, weights, e: int, bm: int):
     t, d = x2d.shape
     k = experts.shape[1]
     dev, dt = x2d.device, x2d.dtype
-    flat_expert = experts.reshape(-1)                             # (T*k,)
-    flat_token = torch.arange(t, device=dev).repeat_interleave(k)
-    order = torch.argsort(flat_expert, stable=True)               # leader sort
-    sorted_tokens = flat_token[order]
-    xs = x2d[sorted_tokens]                                       # (T*k, D)
-    # bincount sizes its output from the data, a host sync on the card
-    group_sizes = torch.zeros(e, dtype=torch.long, device=dev).index_add_(
-        0, flat_expert, torch.ones_like(flat_expert))
+    with obs.span("moe.permute"):
+        flat_expert = experts.reshape(-1)                         # (T*k,)
+        flat_token = torch.arange(t, device=dev).repeat_interleave(k)
+        order = torch.argsort(flat_expert, stable=True)           # leader sort
+        sorted_tokens = flat_token[order]
+        xs = x2d[sorted_tokens]                                   # (T*k, D)
+        # bincount sizes its output from the data, a host sync on the card
+        group_sizes = torch.zeros(e, dtype=torch.long,
+                                  device=dev).index_add_(
+            0, flat_expert, torch.ones_like(flat_expert))
 
-    # rows padded per expert to the row tile, on the device
-    group_ids, scatter = pad_groups_device(group_sizes, bm, t * k)
-    rows = scatter.long()
-    xp = torch.zeros((group_ids.shape[0] * bm, d), dtype=dt, device=dev)
-    xp.index_copy_(0, rows, xs)
+        # rows padded per expert to the row tile, on the device
+        group_ids, scatter = pad_groups_device(group_sizes, bm, t * k)
+        rows = scatter.long()
+        xp = torch.zeros((group_ids.shape[0] * bm, d), dtype=dt, device=dev)
+        xp.index_copy_(0, rows, xs)
     wg, wu, wd = weights
     f = wg.shape[2]
-    # bk and bn are the reference's tiling of K and N; whole extents
-    # always divide, and the kernel's result does not depend on them
-    g = F.silu(gmm(xp, wg, group_ids, bm=bm, bk=d, bn=f, out_dtype=dt))
-    u = gmm(xp, wu, group_ids, bm=bm, bk=d, bn=f, out_dtype=dt)
-    yp = gmm(g * u, wd, group_ids, bm=bm, bk=f, bn=d, out_dtype=dt)
-    ys = yp[rows]                                                 # (T*k, D)
-    flat_gates = gates.reshape(-1)[order].to(dt)
-    contrib = ys * flat_gates[:, None]
+    with obs.span("moe.experts"):
+        # bk and bn are the reference's tiling of K and N; whole extents
+        # always divide, and the kernel's result does not depend on them
+        g = F.silu(gmm(xp, wg, group_ids, bm=bm, bk=d, bn=f, out_dtype=dt))
+        u = gmm(xp, wu, group_ids, bm=bm, bk=d, bn=f, out_dtype=dt)
+        yp = gmm(g * u, wd, group_ids, bm=bm, bk=f, bn=d, out_dtype=dt)
+    with obs.span("moe.combine"):
+        ys = yp[rows]                                             # (T*k, D)
+        flat_gates = gates.reshape(-1)[order].to(dt)
+        contrib = ys * flat_gates[:, None]
 
-    # deterministic combine: token i's k contributions sit at the sorted
-    # positions inv[i*k:(i+1)*k]; add them in ascending position, the order
-    # of JAX's out.at[sorted_tokens].add
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=dev)
-    at = inv.reshape(t, k).sort(dim=1).values
-    out = torch.zeros_like(x2d)
-    for j in range(k):
-        out = out + contrib[at[:, j]]
+        # deterministic combine: token i's k contributions sit at the
+        # sorted positions inv[i*k:(i+1)*k]; add them in ascending
+        # position, the order of JAX's out.at[sorted_tokens].add
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(t * k, device=dev)
+        at = inv.reshape(t, k).sort(dim=1).values
+        out = torch.zeros_like(x2d)
+        for j in range(k):
+            out = out + contrib[at[:, j]]
     return out
 
 
@@ -412,7 +422,8 @@ def _moe_local(p, cfg, x2d, dispatch):
             logits = sum_over_ranks(
                 F.pad(logits, (rank * e_loc, e - (rank + 1) * e_loc)),
                 mesh.get_group("model"))
-        gates, experts, _ = _route(logits, k)
+        with obs.span("moe.route"):
+            gates, experts, _ = _route(logits, k)
         dt = x.dtype
         return dispatch(x, gates, experts, (wg.to(dt), wu.to(dt), wd.to(dt)),
                         e)

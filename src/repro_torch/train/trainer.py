@@ -9,6 +9,10 @@ K3 forward and backward and K3w for the weight gradient
 the step runs, in the reference's order: compression, clipping, the LR of
 the pre-increment step, AdamW.  The metrics stay on the device: reading
 one waits for the step.
+
+A step opens the ``repro_torch.obs`` spans ``train.step``,
+``train.forward`` and ``train.backward`` (each microbatch's) and
+``train.optimizer`` (clipping, the schedule and AdamW).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..checkpoint.checkpointer import tree_flatten, tree_map, tree_unflatten
 from ..sharding.act import gather_data, gathered_params, is_dtensor
 from .compression import compress_decompress, init_error_feedback
@@ -66,11 +71,13 @@ def _value_and_grad(model, params, batch, remat, gather=False):
     live = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
     placed = gathered_params() if gather else contextlib.nullcontext()
     with torch.enable_grad(), placed:
-        used = [gather_data(p) for p in live] if gather else live
-        loss, _ = model.loss(tree_unflatten(params, used), batch,
-                             remat=remat)
+        with obs.span("train.forward"):
+            used = [gather_data(p) for p in live] if gather else live
+            loss, _ = model.loss(tree_unflatten(params, used), batch,
+                                 remat=remat)
         wrt = [p for p in live if p.requires_grad]
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        with obs.span("train.backward"):
+            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = []
     for p in live:
         g = next(got) if p.requires_grad else None
@@ -221,6 +228,10 @@ def make_train_step(model, tcfg):
     decay = []
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        with obs.span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         if not decay:
             decay.append(decay_mask(state.params))
         loss, grads = loss_and_grads(model, tcfg, state.params, batch)
@@ -229,12 +240,14 @@ def make_train_step(model, tcfg):
         if ef is not None:
             grads, ef = compress_decompress(grads, ef)
 
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = cosine_schedule(state.opt.step, base_lr=tcfg.lr,
-                             warmup=tcfg.warmup_steps, total=tcfg.total_steps)
-        params, opt = adamw_update(state.params, grads, state.opt, lr=lr,
-                                   weight_decay=tcfg.weight_decay,
-                                   decay=decay[0])
+        with obs.span("train.optimizer"):
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            lr = cosine_schedule(state.opt.step, base_lr=tcfg.lr,
+                                 warmup=tcfg.warmup_steps,
+                                 total=tcfg.total_steps)
+            params, opt = adamw_update(state.params, grads, state.opt, lr=lr,
+                                       weight_decay=tcfg.weight_decay,
+                                       decay=decay[0])
         metrics = {"loss": _whole(loss), "grad_norm": _whole(gnorm),
                    "lr": lr, "step": opt.step}
         return TrainState(params, opt, ef), metrics
