@@ -274,6 +274,20 @@ Phase 18 drives the launch and benchmark surfaces
     ``moe_sort`` cell.  Artifacts under ``chiprun_out/launch/``.
     Phase 18's K1/K2/K3 launches (each > 0) add to the kernels line.
 
+19. the fused attention kernel (``csrc/attention.cu``) at the callers'
+    shapes (ATTN_CASES: granite's training call, llama-3.2-3b's head dim
+    128, a window, a query offset, cross-attention, MQA, head dim 16):
+    its output, dQ, dK and dV, and the forward's fp32 O, against the
+    plain loop on the same bf16 values row by row (``attn_gaps`` within
+    ATTN_LIMITS), every output bit-identical on a second run; at
+    granite's and llama's shapes the forward and the backward timed
+    against their bound (operations at BF16_FLOP_PER_S, bytes at
+    HBM_BYTES_PER_S), the plain loop and SDPA (``library_ms`` only).
+    Phase 16(b) gates the kernel's calls of every training step: 2 x 24
+    forward (the recomputation under remat), 24 backward, 5 x 24 kernel
+    launches, and no plain loop on CUDA.  Its row joins the kernels line,
+    its launches those of phase 16(b)'s run and of phase 19.
+
 Its last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``; the whole log is also written to
 ``chiprun_out/chip_smoke.log`` and the kernel summary to
@@ -336,6 +350,11 @@ and granite's dry-run and roofline cells), writes
 
 runs phases 1 and 16(a) alone (the build, then K3w and K3's backward
 against their plain versions) and prints no result lines.
+
+    python3 chip_smoke.py --attn
+
+runs phases 1 and 19 alone (the build, then the fused attention kernel),
+writes ``chiprun_out/chip_smoke_attn.json`` and prints no result lines.
 
     python3 chip_smoke.py --models
 
@@ -3665,13 +3684,19 @@ def train_granite(device):
                        warmup_steps=TRAIN_STEPS // 10,
                        total_steps=TRAIN_STEPS, remat=True, seed=SEED)
     n_moe = _moe_layers(cfg)
-    want = {"moe_gmm": 3 * n_moe * 3, "moe_gmm_wgrad": 3 * n_moe}
+    n_attn = _attn_layers(cfg)
+    # attention: each layer's forward twice (the recomputation under
+    # remat) and its backward once, all on the kernel
+    want = {"moe_gmm": 3 * n_moe * 3, "moe_gmm_wgrad": 3 * n_moe,
+            "attention_forward": 2 * n_attn, "attention_backward": n_attn,
+            "attention_launches": 2 * n_attn + 3 * n_attn,
+            "attention_plain_cuda": 0}
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         counts, seen = [], {}
 
         def on_step(step, state, batch):
-            counts.append(_k3_launches())
+            counts.append({**_k3_launches(), **_attn_calls()})
             if step == TRAIN_CKPT_EVERY:
                 # the trainer makes new tensors each step: no copy needed
                 seen["params"], seen["batch"] = state.params, batch
@@ -3684,6 +3709,7 @@ def train_granite(device):
             f"{TRAIN_CKPT_EVERY}")
         mg.gmm.launches = 0
         mg.gmm_wgrad.launches = 0
+        _reset_attn_counters()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, hist = train(cfg, tcfg, steps=TRAIN_STEPS,
@@ -3694,7 +3720,8 @@ def train_granite(device):
         wall = time.perf_counter() - t0
         launches = _k3_launches()
         peak = torch.cuda.max_memory_allocated()
-        counts.append(launches)
+        counts.append({**launches, **_attn_calls()})
+        launches["attention"] = counts[-1]["attention_launches"]
         deltas = [{k: b[k] - a[k] for k in b} for a, b in
                   zip(counts, counts[1:])]
         log(f"train launches per step: {deltas[0]} (want {want}); total "
@@ -4576,7 +4603,291 @@ SOURCES = {
     "moe_gmm_wgrad": ("src/repro_torch/csrc/moe_gmm.cu",
                       "src/repro/models/moe.py:179 (no TPU kernel: XLA's "
                       "gradient of jax.lax.ragged_dot)"),
+    "attention": ("src/repro_torch/csrc/attention.cu",
+                  "src/repro/models/attention.py blockwise_attention (no "
+                  "TPU kernel: plain JAX)"),
 }
+
+
+# -- phase 19: fused attention ------------------------------------------------
+
+#: (label, B, Sq, Sk, Hq, Hkv, Dh, mask keywords): granite's training call
+#: (4 x 4,096 tokens, 16 query heads on 8 of 64, muP scale), llama-3.2-3b's
+#: shape (24 on 8 of 128), a window (mixtral's form, narrower), a query
+#: offset (a prefill's second chunk), seamless's cross-attention (not
+#: causal, Sk != Sq), granite-34b's MQA (48 on 1 of 128) and the smoke
+#: models' head dim 16
+ATTN_CASES = (
+    ("granite", 4, 4096, 4096, 16, 8, 64, dict(causal=True, scale=0.015625)),
+    ("llama3.2-3b", 1, 4096, 4096, 24, 8, 128, dict(causal=True)),
+    ("window", 2, 2048, 2048, 16, 8, 64, dict(causal=True, window=512)),
+    ("q_offset", 2, 1000, 3048, 16, 8, 128,
+     dict(causal=True, q_offset=2048)),
+    ("cross", 2, 1000, 1500, 16, 16, 64, dict(causal=False)),
+    ("mqa", 1, 1024, 1024, 48, 1, 128, dict(causal=True)),
+    ("dh16", 2, 300, 300, 4, 2, 16, dict(causal=True)),
+)
+#: The kernel against the plain loop on the same bf16 values (widened to
+#: fp32, the plain loop's own arithmetic), row by row (``attn_gaps``).  A
+#: row is one query row of one head (O, dQ) or one key of one kv head (dK,
+#: dV), held to its own largest entry plus ATTN_FLOOR of the tensor's
+#: largest: a late causal row (|O| ~ 1/sqrt(its keys)) is not judged by row
+#: 0's scale, and a row whose exact value is 0 (dQ of a query that sees one
+#: key) reads its fp32 noise against the floor.  Limits:
+#: - ``o32.row``, the forward's fp32 O before its bf16 rounding: the split
+#:   keeps ~16 bits of P (the kernel reads 7e-6-1.7e-5 on the H100); P
+#:   rounded to bf16, its lo half dropped, reads 3.5e-3-4.5e-3;
+#: - ``<output>.row`` of O, dQ, dK and dV in bf16: each side rounds once,
+#:   2**-8 of the entry; a skipped key or query tile reads 0.07-4.9;
+#: - ``<output>.miss``, the share of entries other than the plain value's
+#:   own bf16 rounding, among those above ATTN_FLOOR of the tensor's
+#:   largest (an exact 0 read as fp32 noise is no miss): 1e-3-5e-3 where
+#:   the kernel is within ~2**-16 of the plain value, rising for dK and dV
+#:   with the rows a key sums (the tensor cores' fp32 sums; MQA's 48 x
+#:   1,024 rows read 0.02); 0.37-0.43 for a kernel that drops a lo half of
+#:   P or dS, which the bf16 outputs' row readings cannot see.
+ATTN_OUTPUTS = ("out", "dq", "dk", "dv")
+ATTN_LIMITS = {"o32.row": 2.0 ** -12,
+               **{f"{n}.row": 2.0 ** -7 for n in ATTN_OUTPUTS},
+               **{f"{n}.miss": 2.0 ** -3.5 for n in ATTN_OUTPUTS}}
+ATTN_FLOOR = 2.0 ** -12
+ATTN_SEED = SEED + 19
+
+
+def _attn_calls():
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models import attention as tattn
+
+    return {"attention_forward": kattn.fused_attention.forward_calls,
+            "attention_backward": kattn.fused_attention.backward_calls,
+            "attention_launches": kattn.fused_attention.launches,
+            "attention_plain_cuda":
+                tattn.blockwise_attention.plain_cuda_calls}
+
+
+def _reset_attn_counters():
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models import attention as tattn
+
+    kattn.fused_attention.forward_calls = 0
+    kattn.fused_attention.backward_calls = 0
+    kattn.fused_attention.launches = 0
+    tattn.blockwise_attention.plain_cuda_calls = 0
+
+
+def attn_gaps(got, want, o32):
+    """The readings that ATTN_LIMITS bound: the kernel's (O, dQ, dK, dV)
+    in bf16 ``got`` and its forward's fp32 O ``o32`` against the plain
+    loop's fp32 ``want``, all (B, S, H, Dh)."""
+    import torch
+
+    def row(g, w):
+        err = (g.float() - w).abs().amax(-1)
+        mag = w.abs()
+        return float((err / (mag.amax(-1) + ATTN_FLOOR * mag.max())).max())
+
+    with torch.no_grad():
+        gaps = {"o32.row": row(o32, want[0])}
+        for name, g, w in zip(ATTN_OUTPUTS, got, want):
+            gaps[f"{name}.row"] = row(g, w)
+            above = w.abs() > ATTN_FLOOR * w.abs().max()
+            gaps[f"{name}.miss"] = float(
+                (g != w.to(torch.bfloat16))[above].float().mean())
+    return gaps
+
+
+def attn_over(gaps):
+    """The readings of ``gaps`` over their limits (a NaN is over)."""
+    return {n: x for n, x in gaps.items() if not x <= ATTN_LIMITS[n]}
+
+
+def _attn_layers(cfg) -> int:
+    return sum(cfg.mixer_for_layer(i) in ("attn", "swa")
+               for i in range(cfg.n_layers))
+
+
+def _attn_inputs(device, b, sq, sk, hq, hkv, dh, seed):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device).to(
+            torch.bfloat16)
+
+    return (draw(b, sq, hq, dh), draw(b, sk, hkv, dh), draw(b, sk, hkv, dh),
+            draw(b, sq, hq, dh))
+
+
+def _attn_work(b, sq, sk, hq, hkv, dh, kw):
+    """(forward, backward) operations and bytes the algorithm needs: 4 and
+    10 operations per visible (query, key) pair and head dim (QK^T and PV;
+    the backward's S again, dP, dV, dK, dQ); q, k, v and O (bf16) and the
+    log-sum-exp once each, and dO, dQ, dK, dV in the backward."""
+    from repro_torch.kernels import attention as kattn
+
+    pairs = int(kattn.visible(sq, sk, kw.get("causal", True),
+                              kw.get("window"), kw.get("q_offset", 0)).sum())
+    pairs *= b * hq
+    qo = 2 * b * sq * hq * dh
+    kv = 2 * 2 * b * sk * hkv * dh
+    lse = 4 * b * hq * sq
+    return ((4 * pairs * dh, qo * 2 + kv + lse),
+            (10 * pairs * dh, qo * 4 + kv * 2 + lse))
+
+
+def _bound_of(ops, nbytes):
+    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _attn_case(device, case, timed):
+    """One case: the kernel's output and gradients, and its forward's fp32
+    O, against the plain loop on the same bf16 values within ATTN_LIMITS,
+    every output bit-identical on a second run; where ``timed``, the
+    kernel's forward and backward against their bound, the plain loop and
+    SDPA (the ``library_ms`` yardstick, never on the port's paths)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models import attention as tattn
+
+    label, b, sq, sk, hq, hkv, dh, kw = case
+    q, k, v, do = _attn_inputs(device, b, sq, sk, hq, hkv, dh, ATTN_SEED)
+    scale = kw.get("scale", 1 / dh ** 0.5)
+    causal, window = kw.get("causal", True), kw.get("window")
+    q_offset = kw.get("q_offset", 0)
+    args = (causal, window, q_offset, scale)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = tattn.blockwise_attention(*leaves, **kw)
+        runs.append((out, *torch.autograd.grad(out, leaves, do)))
+        del leaves, out
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    _, o32, lse = kattn._forward(q, k, v, *args, keep=True)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    plain = tattn.blockwise_attention(*leaves, **kw)
+    want = (plain.detach(), *torch.autograd.grad(plain, leaves, do.float()))
+    del leaves, plain
+    gaps = attn_gaps(runs[0], want, o32)
+    over = attn_over(gaps)
+    del want, runs
+    row = {"case": label, "shape": [b, sq, sk, hq, hkv, dh],
+           "mask": {n: kw[n] for n in kw if n != "scale"},
+           "gaps": gaps, "bit_identical": same}
+    log(f"attn {label}: (B, Sq, Sk, Hq, Hkv, Dh) = {(b, sq, sk, hq, hkv, dh)}"
+        f" {row['mask']}; against the plain loop "
+        + " ".join(f"{n} {e:.2e}" for n, e in gaps.items())
+        + f" (limits o32.row {ATTN_LIMITS['o32.row']:.2e}, row "
+        f"{ATTN_LIMITS['out.row']:.2e}, miss {ATTN_LIMITS['out.miss']:.2e})"
+        f"; two runs bit-identical: {same}")
+    if not same or over:
+        raise SystemExit(f"attn {label}: over the limits {over}, "
+                         f"bit-identical {same}")
+    if not timed:
+        return row
+    fwd_ms, how = _device_ms(lambda: kattn._forward(q, k, v, *args,
+                                                    keep=True))
+    bwd_ms, _ = _device_ms(lambda: kattn._backward(q, k, v, o32, lse, do,
+                                                   *args))
+    (f_ops, f_bytes), (b_ops, b_bytes) = _attn_work(b, sq, sk, hq, hkv, dh,
+                                                    kw)
+    f_bound, f_side = _bound_of(f_ops, f_bytes)
+    b_bound, b_side = _bound_of(b_ops, b_bytes)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    do32 = do.float()
+
+    def plain_fwd():
+        return tattn.blockwise_attention(*leaves, **kw)
+
+    def plain_both():
+        return torch.autograd.grad(plain_fwd(), leaves, do32)
+
+    # CUDA events (host gaps included): the backward's kernels are
+    # launched from autograd's thread, outside the profiler's range
+    plain_f = _events_ms(plain_fwd, reps=5)
+    plain_fb = _events_ms(plain_both, reps=5)
+    del leaves
+    _free()
+    lib_f = lib_fb = None
+    if q_offset == 0 and window is None and (sq == sk or not causal):
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ldo = do.transpose(1, 2)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, scale=scale,
+                enable_gqa=hq != hkv)
+
+        def lib_both():
+            return torch.autograd.grad(lib_fwd(), (lq, lk, lv), ldo)
+
+        try:
+            lib_f = _events_ms(lib_fwd)
+            lib_fb = _events_ms(lib_both)
+        except RuntimeError as e:
+            log(f"library attn {label}: SDPA refused: "
+                f"{str(e).splitlines()[0][:160]}")
+            lib_f = lib_fb = None
+    row.update({
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms, "timer": how,
+        "forward_bound_ms": f_bound, "forward_bound_by": f_side,
+        "backward_bound_ms": b_bound, "backward_bound_by": b_side,
+        "forward_tflops": f_ops / fwd_ms / 1e9,
+        "backward_tflops": b_ops / bwd_ms / 1e9,
+        "plain_forward_ms": plain_f, "plain_backward_ms": plain_fb - plain_f,
+        "library_forward_ms": lib_f,
+        "library_backward_ms": None if lib_f is None else lib_fb - lib_f,
+        "operations": f_ops + b_ops, "bytes": f_bytes + b_bytes,
+        # how much of the summed bound each side sets, in ms
+        "bound_operations_ms": (f_bound if f_side == "operations" else 0.0)
+        + (b_bound if b_side == "operations" else 0.0),
+        "bound_bytes_ms": (f_bound if f_side == "bytes" else 0.0)
+        + (b_bound if b_side == "bytes" else 0.0)})
+    log(f"time attn {label}: forward {fwd_ms:.4f} ms (bound {f_bound:.4f}, "
+        f"{f_side}; {f_ops / fwd_ms / 1e9:.1f} TFLOP/s), backward "
+        f"{bwd_ms:.4f} ms (bound {b_bound:.4f}, {b_side}; "
+        f"{b_ops / bwd_ms / 1e9:.1f} TFLOP/s) [{how}]; CUDA events: plain "
+        f"forward {plain_f:.3f}, backward {plain_fb - plain_f:.3f} ms; "
+        "library "
+        + ("none" if lib_f is None else
+           f"forward {lib_f:.4f}, backward {lib_fb - lib_f:.4f} ms"))
+    return row
+
+
+def attention_phase(device):
+    """Phase 19: the fused attention kernel against the plain loop at the
+    callers' shapes (ATTN_CASES), bit-identical twice, and timed at
+    granite's and llama's shapes.  Returns (rows, the kernel-table row of
+    granite's call, the worst row gap of a bf16 output); the counters
+    start from 0."""
+    t0 = time.perf_counter()
+    _reset_attn_counters()
+    rows = []
+    for case in ATTN_CASES:
+        rows.append(_attn_case(device, case,
+                               timed=case[0] in ("granite", "llama3.2-3b")))
+        _free()
+    g = rows[0]
+    total = {"ms": g["forward_ms"] + g["backward_ms"],
+             "plain_ms": g["plain_forward_ms"] + g["plain_backward_ms"],
+             "bound_ms": g["forward_bound_ms"] + g["backward_bound_ms"],
+             "operations": g["bound_operations_ms"],
+             "bytes": g["bound_bytes_ms"],
+             "library_ms": (g["library_forward_ms"] + g["library_backward_ms"]
+                            if g["library_forward_ms"] is not None
+                            else None),
+             "calls": 2}
+    worst = max(x for r in rows for n, x in r["gaps"].items()
+                if n.endswith(".row") and n != "o32.row")
+    log(f"phase 19 (attention) took {time.perf_counter() - t0:.1f} s; "
+        f"calls {_attn_calls()}")
+    return rows, total, worst
 
 
 # -- phase 18: the launch and benchmark surfaces ------------------------------
@@ -4888,6 +5199,13 @@ def main() -> int:
         log(f"launch done in {time.perf_counter() - t_start:.1f} s on "
             f"{card}")
         return 0
+    if "--attn" in sys.argv[1:]:
+        # phases 1 and 19 alone: the fused attention kernel
+        rows, _, _ = attention_phase(device)
+        (OUT_DIR / "chip_smoke_attn.json").write_text(json.dumps(
+            {"card": card, "attention": rows}, indent=1, default=str))
+        log(f"attn done in {time.perf_counter() - t_start:.1f} s on {card}")
+        return 0
     if "--analysis" in sys.argv[1:]:
         # phases 1 and 14 alone: verification, traces, learned, TuneDB
         analysis_phase(device)
@@ -4987,6 +5305,15 @@ def main() -> int:
     log(f"phase 18 done at {time.perf_counter() - t_start:.1f} s; K1 "
         f"{launch_k1}, K2 {launch_k2}, K3 {launch_launches['moe_gmm']} "
         f"launches (totals {launches})")
+    attention, totals["attention"], worst["attention"] = \
+        attention_phase(device)
+    calls = _attn_calls()
+    launches["attention"] = (train_launches["attention"]
+                             + calls["attention_launches"])
+    log(f"phase 19 done at {time.perf_counter() - t_start:.1f} s; "
+        f"attention kernel launches: phase 16(b)'s run "
+        f"{train_launches['attention']} + phase 19 "
+        f"{calls['attention_launches']} = {launches['attention']}")
 
     kernels = []
     for name, t in totals.items():
@@ -5008,13 +5335,16 @@ def main() -> int:
         "step, replayed; bound and library as moe_gmm's (library: "
         "torch._grouped_mm's 2-D x 2-D form, none where it is missing or "
         "refuses the operands)")
+    log("attention: granite's training call, forward and backward; its "
+        "max_abs_err is the worst row gap of a bf16 output (ATTN_LIMITS); "
+        "library = SDPA, never on the port's paths")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "in_place": in_place,
          "tiled": tiled, "policy": policy,
          "pipeline": pipeline, "dist": dist, "analysis": analysis,
          "tune": tune, "models": models, "train": train, "shard": shard,
-         "launch": launch},
+         "launch": launch, "attention": attention},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,9 @@ PyTorch versions.
   wrappers over those two kernels;
 - ``moe_gmm.py`` — the MoE grouped matmul ``gmm`` (K3, from
   ``csrc/moe_gmm.cu``) and its group padding, host and device forms;
+- ``attention.py`` — fused causal/windowed GQA attention, forward and
+  backward (``csrc/attention.cu``), the kernel route of
+  :func:`repro_torch.models.attention.blockwise_attention`;
 - ``ops.py`` — the one-shot ``spmm_with_dataflow`` and the deprecated
   ``flexagon_spmm`` (phase 1 and ``apply`` on every call; the plan-once
   entry point is :func:`repro_torch.api.flexagon_plan`);

@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: library name -> source file under ``csrc/``
-SOURCES = {"stream_spmm": "stream_spmm.cu", "moe_gmm": "moe_gmm.cu"}
+SOURCES = {"stream_spmm": "stream_spmm.cu", "moe_gmm": "moe_gmm.cu",
+           "attention": "attention.cu"}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,18 @@
 """Attention: GQA/MQA with RoPE, optional QK-norm / QKV bias / sliding window,
 blockwise (flash-style) prefill attention, and KV-cache decode.
 
-The port of ``repro.models.attention``, in plain PyTorch as the JAX module
-is plain JAX (no TPU kernel lies here).  Queries and keys are processed in
-blocks with a running (max, denominator) softmax in fp32; Python loops take
-the place of ``lax.map``/``lax.scan``.  Score and value products take bf16
-inputs widened to fp32, as JAX's ``preferred_element_type=float32``.
+The port of ``repro.models.attention``.  The JAX module is plain JAX (no
+TPU kernel lies here); its blockwise attention has two routes here, chosen
+by :func:`repro_torch.kernels.attention.route` from the inputs alone:
+
+- bf16 on the card: the fused kernel of ``csrc/attention.cu``, forward and
+  backward (:func:`repro_torch.kernels.attention.fused_attention`);
+- on the CPU (and meta tensors), and fp32/fp64 inputs anywhere: the plain
+  loop, as JAX's.  Queries and keys are processed in blocks with a running
+  (max, denominator) softmax in fp32; Python loops take the place of
+  ``lax.map``/``lax.scan``.  Score and value products take bf16 inputs
+  widened to fp32, as JAX's ``preferred_element_type=float32`` (fp64
+  inputs stay fp64, for the gradient checks).
 
 The softmax takes the scores times 1/sqrt(head_dim), or times a config's
 ``scales.attention`` where it has scales (:func:`softmax_scale`).
@@ -22,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels import attention as kattn
 from ..sharding.act import is_dtensor, merge_heads, shard, split_heads
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init, rope
 
@@ -30,9 +38,8 @@ __all__ = ["attn_init", "attn_apply", "attn_decode", "AttnCache",
            "write_rows", "write_slot"]
 
 NEG_INF = -1e30
-#: :func:`blockwise_attention`'s query rows a block with gradients off, and
-#: with them on
-BLOCK_Q, BLOCK_Q_GRAD = 512, 4096
+#: :func:`blockwise_attention`'s query rows a block
+BLOCK_Q = 512
 
 
 class AttnCache(NamedTuple):
@@ -83,10 +90,10 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, q_offset: int = 0,
-                        block_q: Optional[int] = None, block_k: int = 1024,
+                        block_q: int = BLOCK_Q, block_k: int = 1024,
                         gqa_native: bool = False,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Flash-style attention in plain PyTorch.
+    """Flash-style attention.
 
     q: (B, Sq, Hq, Dh); k/v: (B, Sk, Hkv, Dh) with Hq a multiple of Hkv.
     ``gqa_native=False`` repeats K/V to Hq heads, ``True`` groups query heads
@@ -94,18 +101,23 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     timeline; ``window`` enables sliding-window attention; ``scale``
     multiplies the scores (None: 1/sqrt(Dh)).
 
-    ``block_q`` (None: :data:`BLOCK_Q_GRAD` rows with gradients on, else
-    :data:`BLOCK_Q`) sets the query rows of a block.  Each (query block,
-    key block) pair costs about twenty launches, and as many again in its
-    backward and in its recomputation under remat.  With gradients off
-    only one block's scores are live at a time, so small blocks keep a
-    prefill's peak low; with gradients on autograd keeps every block's
-    scores for the backward whatever the block, so larger blocks add
-    little to the peak, and a training step over
-    4,096-token sequences in 512-row blocks launched ~95k operations and
-    the host paced the card, where 4,096-row blocks launch an eighth of
-    them.
+    bf16 inputs on the card run the fused kernel
+    (:func:`repro_torch.kernels.attention.fused_attention`; query head h
+    reads kv head h // (Hq / Hkv) whatever ``gqa_native``, and the blocks
+    are the kernel's own), or raise where it cannot take them
+    (:func:`repro_torch.kernels.attention.route`).  Everything else runs
+    the plain loop below; ``blockwise_attention.plain_cuda_calls`` counts
+    its calls on CUDA tensors.
+
+    ``block_q`` and ``block_k`` set the plain loop's query rows and keys of
+    a block.
     """
+    if kattn.route(q.device.type, (q.dtype, k.dtype, v.dtype), q.shape,
+                   k.shape) == "kernel":
+        return kattn.fused_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, scale=scale)
+    if q.device.type == "cuda":
+        blockwise_attention.plain_cuda_calls += 1
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     if not gqa_native and h != hkv:
@@ -116,25 +128,23 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     dev = q.device
-    if block_q is None:
-        block_q = BLOCK_Q_GRAD if torch.is_grad_enabled() else BLOCK_Q
     block_q = min(block_q, sq)
     block_k = min(block_k, sk)
     nq = -(-sq // block_q)
     nk = -(-sk // block_k)
-    qf = q.float().reshape(b, sq, hkv, n_rep, dh)
-    kf, vf = k.float(), v.float()
+    acc_t = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(acc_t).reshape(b, sq, hkv, n_rep, dh)
+    kf, vf = k.to(acc_t), v.to(acc_t)
     k_pos_all = torch.arange(sk, device=dev)
     outs = []
     for qi in range(nq):
         qb = qf[:, qi * block_q:(qi + 1) * block_q]
         bq = qb.shape[1]
         q_pos = q_offset + qi * block_q + torch.arange(bq, device=dev)
-        m = torch.full((b, hkv, n_rep, bq), NEG_INF, dtype=torch.float32,
+        m = torch.full((b, hkv, n_rep, bq), NEG_INF, dtype=acc_t,
                        device=dev)
-        l = torch.zeros((b, hkv, n_rep, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, n_rep, bq, dh), dtype=torch.float32,
-                          device=dev)
+        l = torch.zeros((b, hkv, n_rep, bq), dtype=acc_t, device=dev)
+        acc = torch.zeros((b, hkv, n_rep, bq, dh), dtype=acc_t, device=dev)
         for ki in range(nk):
             kb = kf[:, ki * block_k:(ki + 1) * block_k]
             vb = vf[:, ki * block_k:(ki + 1) * block_k]
@@ -162,6 +172,9 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return out.to(v.dtype)
 
 
+blockwise_attention.plain_cuda_calls = 0
+
+
 def _repeat_heads(t, heads: int):
     """(B, S, Hkv, Dh) -> (B, S, heads, Dh), each kv head repeated in
     place, as :func:`_repeat_kv`, in view ops that DTensor shards."""
@@ -178,10 +191,13 @@ def _attend(q, k, v, **kw):
     heads.
 
     Heads and sequences are independent, so each rank attends its own
-    slice with plain tensors (``local_map``): K/V are repeated to the
-    query heads first and placed as the queries are, batch on the data
-    axes and heads on "model" where they were split, every other mesh dim
-    gathered."""
+    slice with plain tensors (``local_map``): Q, K and V placed alike,
+    batch on the data axes and heads on "model" where they were split,
+    every other mesh dim gathered.  A rank's slice of query heads then
+    reads its own slice of kv heads (h // n_rep), as the unsharded call
+    does, so both sum each kv head's gradient the same way; only where
+    the head shards do not divide both head counts are K/V repeated to
+    the query heads first."""
     if not is_dtensor(q):
         return blockwise_attention(q, k, v, **kw)
     from torch.distributed.tensor import Replicate, Shard
@@ -190,9 +206,12 @@ def _attend(q, k, v, **kw):
     mesh = q.device_mesh
     placements = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
                        else Replicate() for p in q.placements)
-    h = q.shape[2]
-    q, k, v = (t.redistribute(mesh, placements)
-               for t in (q, _repeat_heads(k, h), _repeat_heads(v, h)))
+    h, hkv = q.shape[2], k.shape[2]
+    split = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                      if isinstance(p, Shard) and p.dim == 2)
+    if h % split or hkv % split:
+        k, v = _repeat_heads(k, h), _repeat_heads(v, h)
+    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
     fn = local_map(functools.partial(blockwise_attention, **kw),
                    out_placements=(placements,),
                    in_placements=(placements,) * 3, device_mesh=mesh)
